@@ -10,13 +10,18 @@ line:
    and CUDA versions, and the build of every kernel in
    pfbwtf_tpu_torch/csrc/ (one nvcc per source, started together).
 2. Kernel K1 (the cut scan) against its plain PyTorch version on the
-   card, bit for bit, over a (w, p) grid and ragged lengths, then at the
-   main path's shape with the 64 MB input's own codes: CUDA-event median
-   times of both and K1's bound.
-3. The whole fused build of a 1 MB pan-genome on the card against the
+   card, bit for bit, over a (w, p) grid (p up to 2**64 - 1), ragged and
+   short lengths and a view that starts one byte past an allocation, with
+   k-mers planted whose hashes are multiples of p; then at the main
+   path's shape with the 64 MB input's own codes: CUDA-event median times
+   of both (K1 one launch at a time, and in batches of 20 back to back),
+   K1's bound and the share of it reached by each time.
+3. The yardstick of the TPU gather probe's kernels K2-K4, which the port
+   does not have: torch.take at their shape, beside their bytes bound.
+4. The whole fused build of a 1 MB pan-genome on the card against the
    same build on the CPU, through pfbwt_fused_records and through the
    CLI (``--fused -s -r``): .bwt/.sa/.ssa/.esa bytes must be identical.
-4. The main path: the fused build of the 64 MB pan-genome of bench.py
+5. The main path: the fused build of the 64 MB pan-genome of bench.py
    (8 mutated copies of an 8 MiB unit, SNP rate 0.001, w=10, p=100, seed
    4321) with the kernel launch counts set to 0 just before and read just
    after.  Stage times, peak device memory, n, r, checksum and doubling
@@ -40,24 +45,35 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 W, P = 10, 100
 PAN_COPIES, PAN_SNP_RATE, PAN_SEED = 8, 0.001, 4321
 K1_GRID = ((10, 100), (1, 3), (16, 511), (17, 97), (32, 97),
-           (10, (1 << 15) + 3), (4, (1 << 20) - 1))
-K1_LENGTHS = (1, 2047, 2049, 100_003, 1_000_037)
+           (10, (1 << 15) + 3), (4, (1 << 20) - 1)) + tuple(
+    (w, p) for w in (31, 32)
+    for p in (1, 2, 64, 1 << 32, 1 << 63, (1 << 63) + 29, (1 << 64) - 1))
+K1_LENGTHS = (1, 15, 16, 17, 2047, 2049, 100_003, 1_000_037)  # and w - 1
+K1_OFFSETS = (0, 1)  # codes = buf[off:]; 1 starts off a 16-byte boundary
+# the TPU gather probe's shape (benchmarks/gather_probe.py:34-35, 164-168)
+GATHER_TABLE, GATHER_IDX = 1 << 20, 1 << 24
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-# H100 SXM instruction issue: one 32-bit instruction per lane per clock,
-# which is the 67 TFLOP/s fp32 peak with an FMA counted once
-ISSUE_PER_S = 67e12 / 2
+# H100 SXM instruction issue: 132 SMs x 128 lanes x 1.98 GHz (boost), one
+# 32-bit instruction per lane per clock
+INSN_PER_S = 132 * 128 * 1.98e9
 
 
-def k1_ops_per_position(w: int) -> int:
-    """32-bit instructions per position that K1's body spends on its
-    work, read from its sm_90a SASS (scripts/k1_sass.py): the code staged
-    (LDG, STS), w codes packed from shared memory (LDS, SHL, SHF.L.U64.HI,
-    LOP3 each), the Wang mix (25), the divisibility test (37: the 32-bit
-    fold with its reciprocal for p < 2**15; the 64-bit remainder routine
-    for larger p is longer) and the flag (2 ISETP, SEL, STG).  Loop
-    control and index arithmetic are left out, so this is a lower
-    bound.  Recount it from the listing when the kernel changes."""
-    return 2 + 4 * w + 25 + 37 + 4
+def k1_ops_per_position(w: int) -> float:
+    """32-bit instructions that the cut scan's work takes a position,
+    counted from the SASS of K1's own hot path (scripts/k1_sass.py, its
+    "work" line): what a thread issues for its run of 32 positions, less
+    what loads, packs and realigns codes (LDG, PRMT, the IMADs by the
+    gather constant, the left funnel shifts by the offset), stores (STG),
+    reads parameters (LDC), moves registers (MOV), runs on the uniform
+    datapath (U*, S2R, S2UR), forms addresses (VIADD, sign extensions) or
+    steers (BRA, BSSY, BSYNC, EXIT, ISETP, SEL).  What remains is the
+    k-mer's extraction, the Wang mix, the test by a multiplicative inverse
+    and the flag as the compiler fused them: 1029 instructions for 32
+    positions at w <= 16, 1142 above.  The parts counted apart (a
+    two-instruction k-mer update, 25 for the mix alone, 7 for the test, 2
+    for the flag: 36) come to more than the fused code spends.  Recount
+    when csrc/hash_scan.cu changes."""
+    return (1142 if w > 16 else 1029) / 32
 
 
 def check(ok: bool, what: str):
@@ -126,7 +142,11 @@ def check_bwt_sa(C: np.ndarray, bwt: np.ndarray, sa: np.ndarray, device):
     check(bool(ok.all()), "adjacent SA entries out of suffix order")
 
 
-def _median_ms(fn, iters: int) -> float:
+def _median_ms(fn, iters: int, per: int = 1) -> float:
+    """Median CUDA-event milliseconds per call over ``iters`` samples of
+    ``per`` calls back to back.  With per > 1 the host's enqueue of each
+    call hides behind the card's work on the one before, so a short
+    kernel's time is not its launch overhead."""
     import torch
 
     fn()
@@ -136,10 +156,11 @@ def _median_ms(fn, iters: int) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(per):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / per)
     return float(np.median(times))
 
 
@@ -177,21 +198,31 @@ def phase_k1(codes_main: "torch.Tensor"):
 
     from pfbwtf_tpu_torch.ops.cuda import hash_scan as k1
     from pfbwtf_tpu_torch.ops.hash import hash_scan
+    from pfbwtf_tpu_torch.testing import plant_cuts
 
     rng = np.random.default_rng(7)
-    max_err = 0
+    max_err = runs = planted = 0
     for w, p in K1_GRID:
-        for n in K1_LENGTHS:
-            codes = torch.from_numpy(
-                rng.integers(0, 4, size=n, dtype=np.uint8)).cuda()
-            got = k1.cut_scan(codes, w, p)
-            want = hash_scan(codes, w, p)
-            torch.cuda.synchronize()
-            err = int((got.to(torch.int8) - want.to(torch.int8)).abs().max())
-            max_err = max(max_err, err)
-            check(err == 0, f"K1 differs from plain at w={w} p={p} n={n}")
-    print(f"K1 grid: {len(K1_GRID)} (w, p) x {len(K1_LENGTHS)} lengths "
-          "bit-equal to the plain version")
+        for n in K1_LENGTHS + (max(w - 1, 1),):
+            for off in K1_OFFSETS:
+                buf = rng.integers(0, 4, size=n + off, dtype=np.uint8)
+                pos = plant_cuts(buf[off:], w, p)
+                codes = torch.from_numpy(buf).cuda()[off:]
+                got = k1.cut_scan(codes, w, p)
+                want = hash_scan(codes, w, p)
+                torch.cuda.synchronize()
+                err = int((got.to(torch.int8)
+                           - want.to(torch.int8)).abs().max())
+                max_err = max(max_err, err)
+                where = f"w={w} p={p} n={n} offset={off}"
+                check(err == 0, f"K1 differs from plain at {where}")
+                check(bool(want[pos].all()),
+                      f"a planted k-mer does not cut at {where}")
+                runs += 1
+                planted += len(pos)
+    print(f"K1 grid: {len(K1_GRID)} (w, p) x {len(K1_LENGTHS) + 1} lengths "
+          f"x offsets {K1_OFFSETS}: {runs} runs bit-equal to the plain "
+          f"version, {planted} planted cuts found")
     n = codes_main.shape[0]
     got = k1.cut_scan(codes_main, W, P)
     want = hash_scan(codes_main, W, P)
@@ -203,24 +234,57 @@ def phase_k1(codes_main: "torch.Tensor"):
           f"{int(got.sum())} cuts")
     del got, want
     ms = _median_ms(lambda: k1.cut_scan(codes_main, W, P), 50)
+    ms_batched = _median_ms(lambda: k1.cut_scan(codes_main, W, P), 20,
+                            per=20)
     plain_ms = _median_ms(lambda: hash_scan(codes_main, W, P), 5)
     bytes_ms = 2 * n / HBM_BYTES_PER_S * 1e3
-    ops = k1_ops_per_position(W) * n
-    ops_ms = ops / ISSUE_PER_S * 1e3
+    ops = round(k1_ops_per_position(W) * n)
+    ops_ms = ops / INSN_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"K1 time {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}; {2 * n} B at 3.35 TB/s = "
-          f"{bytes_ms:.4f} ms, {ops} 32-bit instructions at 33.5 T/s = "
-          f"{ops_ms:.4f} ms), the bound is {bound_ms / ms:.3f} of the time")
+    print(f"K1 time {ms:.4f} ms one launch at a time (the host's enqueue "
+          f"included), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}; {2 * n} B at 3.35 TB/s = {bytes_ms:.4f} ms, {ops} "
+          f"32-bit instructions at 33.45 T/s = {ops_ms:.4f} ms), the bound "
+          f"is {bound_ms / ms:.3f} of the time")
+    print(f"K1 time in batches of 20 launches back to back: "
+          f"{ms_batched:.4f} ms, the bound is {bound_ms / ms_batched:.3f} "
+          f"of it")
     return {
         "name": "cut_scan", "route": "cuda",
         "source": "pfbwtf_tpu_torch/csrc/hash_scan.cu",
         "replaces": "pfbwtf_tpu/ops/pallas/hash_scan.py:185",
         "launches": None, "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
+        "library_ms": None, "bound_share": bound_ms / ms,
+        "ms_batched": ms_batched, "bound_share_batched": bound_ms / ms_batched,
     }
+
+
+def phase_gather_yardstick():
+    """torch.take at the shape of the TPU gather probe's kernels K2-K4
+    (out[i] = table[idx[i]], a table of 2^20 int32 and 2^24 indices).
+    The port has no kernel for them; this is the library call their rows
+    are held against.  The bound counts the function's bytes: the
+    indices read and the output written once, 4 B each, and the table
+    read once."""
+    import torch
+
+    rng = np.random.default_rng(0)
+    table_np = rng.integers(0, 1 << 30, size=GATHER_TABLE, dtype=np.int32)
+    idx_np = rng.integers(0, GATHER_TABLE, size=GATHER_IDX, dtype=np.int32)
+    table = torch.from_numpy(table_np).cuda()
+    idx = torch.from_numpy(idx_np.astype(np.int64)).cuda()  # take: int64
+    out = torch.take(table, idx)
+    check(np.array_equal(out.cpu().numpy(), table_np[idx_np]),
+          "torch.take differs from numpy")
+    ms = _median_ms(lambda: torch.take(table, idx), 20, per=20)
+    nbytes = 4 * GATHER_IDX * 2 + 4 * GATHER_TABLE
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"K2-K4 yardstick: torch.take of {GATHER_IDX} int64 indices into "
+          f"a {GATHER_TABLE}-entry int32 table {ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms (bytes; {nbytes} B at 3.35 TB/s), "
+          f"{bound_ms / ms:.3f} of the time")
 
 
 def phase_small():
@@ -330,6 +394,7 @@ def main() -> int:
     codes_main = ntoa_codes(torch.from_numpy(chars_p).cuda())
     row = phase_k1(codes_main)
     del codes_main
+    phase_gather_yardstick()
     phase_small()
     row["launches"] = phase_main(records, C)
     print(json.dumps({"kernels": [row]}))

@@ -4,6 +4,8 @@
 the current stream (no synchronisation) or raises.  Its plain version is
 ops/hash.py::hash_scan, which ops/hash.py::cut_mask runs for a CPU
 tensor.  ``launches`` counts the kernel launches.
+``divisibility_constants`` is the host half of K1's ``% p == 0`` test and
+needs no card.
 """
 
 import ctypes
@@ -18,12 +20,28 @@ launches = 0
 _U64_LIMIT = 1 << 64
 
 
+def divisibility_constants(p: int) -> tuple[int, int, int]:
+    """``(qinv, s, limit)`` with which K1 tests ``h % p == 0``.
+
+    p = 2**s * q with q odd; qinv = q**-1 mod 2**64 and limit =
+    (2**64 - 1) // p.  For every 64-bit h, h % p == 0 exactly when
+    rotr64(h * qinv mod 2**64, s) <= limit (Hacker's Delight, 10-17):
+    a multiple h = p*m gives h * qinv = 2**s * m, which rotates to
+    m <= limit; a rotated value <= limit < 2**(64-s) has s low zero bits
+    before the rotate, so it is 2**s * m and h = p*m."""
+    if not 1 <= p < _U64_LIMIT:
+        raise ValueError("p must be in [1, 2**64)")
+    s = (p & -p).bit_length() - 1
+    return pow(p >> s, -1, _U64_LIMIT), s, (_U64_LIMIT - 1) // p
+
+
 def _fn():
     lib = build.load("hash_scan")
     fn = lib.pfbwt_cut_scan
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_ulonglong, ctypes.c_void_p,
+        ctypes.c_ulonglong, ctypes.c_int, ctypes.c_ulonglong,
+        ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -31,7 +49,8 @@ def _fn():
 
 def cut_scan(codes: torch.Tensor, w: int, p: int) -> torch.Tensor:
     """Cut mask (torch.bool, same length as ``codes``): cut[i] iff i >= w
-    and wang(kmer_i) % p == 0."""
+    and wang(kmer_i) % p == 0.  ``codes`` may start at any byte (an
+    offset view)."""
     global launches
     if codes.device.type != "cuda":
         raise ValueError(f"cut_scan: unsupported device {codes.device}")
@@ -47,10 +66,12 @@ def cut_scan(codes: torch.Tensor, w: int, p: int) -> torch.Tensor:
     cut = torch.empty(n, dtype=torch.bool, device=codes.device)
     if n == 0:
         return cut
+    qinv, s, limit = divisibility_constants(p)
     fn = _fn()
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(codes.data_ptr(), cut.data_ptr(), n, w, p, stream)
+        rc = fn(codes.data_ptr(), cut.data_ptr(), n, w, qinv, s, limit,
+                stream)
     if rc != 0:
         raise RuntimeError(f"cut_scan kernel launch failed: CUDA error {rc}")
     launches += 1

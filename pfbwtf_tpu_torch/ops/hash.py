@@ -20,6 +20,8 @@ from ..constants import MAX_W
 from .cuda.hash_scan import cut_scan
 
 _I64_MAX = (1 << 63) - 1
+_I64_MIN = -(1 << 63)
+_U64_LIMIT = 1 << 64
 
 
 def _shr(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -51,11 +53,19 @@ def window_kmers(codes: torch.Tensor, w: int) -> torch.Tensor:
 
 def mod_p(h: torch.Tensor, p: int) -> torch.Tensor:
     """Unsigned ``h mod p`` for the uint64 held in int64 ``h``, exact for
-    every 1 <= p < 2**63.  A negative h stands for h + 2**64 = low + 2**63
-    with low = h & (2**63 - 1); both residues are < p, and their sum is
-    reduced without leaving the int64 range."""
-    if not 1 <= p <= _I64_MAX:
-        raise ValueError(f"mod_p needs 1 <= p < 2**63, got {p}")
+    every 1 <= p < 2**64.
+
+    For p < 2**63 a negative h stands for h + 2**64 = low + 2**63 with
+    low = h & (2**63 - 1); both residues are < p, and their sum is reduced
+    without leaving the int64 range.  For p >= 2**63 the unsigned value u
+    is below 2p, so u mod p is u when u < p and u - p otherwise; p rides
+    in int64 as p - 2**64, and u < p is the signed comparison of both with
+    the sign bit flipped."""
+    if not 1 <= p < _U64_LIMIT:
+        raise ValueError(f"mod_p needs 1 <= p < 2**64, got {p}")
+    if p > _I64_MAX:
+        below = (h ^ _I64_MIN) < p - (1 << 63)
+        return torch.where(below, h, h - (p - _U64_LIMIT))
     r = (h & _I64_MAX) % p
     s = r - (p - (1 << 63) % p)
     return torch.where(h < 0, torch.where(s < 0, s + p, s), r)

@@ -10,6 +10,7 @@ from pfbwtf_tpu_torch.ops.cuda import hash_scan as k1
 from pfbwtf_tpu_torch.ops.fused import pfbwt_fused_records
 from pfbwtf_tpu_torch.ops.hash import hash_scan
 from pfbwtf_tpu_torch.ops.parse import ParserParams
+from pfbwtf_tpu_torch.testing import plant_cuts
 
 pytestmark = pytest.mark.cuda
 
@@ -23,19 +24,30 @@ def card():
     return torch.device("cuda")
 
 
+BIG_P = (1, 2, 64, 1 << 32, 1 << 63, (1 << 63) + 29, (1 << 64) - 1)
+
+
 @pytest.mark.parametrize("w,p", [(10, 100), (1, 3), (16, 511), (17, 97),
                                  (32, 97), (10, (1 << 15) + 3),
-                                 (4, (1 << 20) - 1), (12, (1 << 31) + 11)])
+                                 (4, (1 << 20) - 1), (12, (1 << 31) + 11)]
+                         + [(w, p) for w in (31, 32) for p in BIG_P])
 def test_k1_equals_plain_on_card(card, w, p):
+    """Ragged, short and aligned lengths, each also as a view that starts
+    off a 16-byte boundary; planted k-mers must cut."""
     rng = np.random.default_rng(w * 1000 + p % 1000)
-    for n in (1, 2047, 2049, 300_007):
-        codes = torch.from_numpy(
-            rng.integers(0, 4, size=n, dtype=np.uint8)).to(card)
-        before = k1.launches
-        got = k1.cut_scan(codes, w, p)
-        torch.cuda.synchronize()
-        assert k1.launches == before + 1
-        assert torch.equal(got, hash_scan(codes, w, p))
+    for n in (1, 15, 16, 17, max(w - 1, 1), 2047, 2049, 300_007):
+        for off in (0, 1, 15):
+            buf = rng.integers(0, 4, size=n + off, dtype=np.uint8)
+            pos = plant_cuts(buf[off:], w, p)
+            codes = torch.from_numpy(buf).to(card)[off:]
+            assert codes.data_ptr() % 16 == off
+            before = k1.launches
+            got = k1.cut_scan(codes, w, p)
+            torch.cuda.synchronize()
+            assert k1.launches == before + 1
+            want = hash_scan(codes, w, p)
+            assert torch.equal(got, want), (n, off)
+            assert bool(want[pos].all()), (n, off)
 
 
 def test_k1_rejects_bad_input(card):
