@@ -27,6 +27,21 @@ line:
    after.  Stage times, peak device memory, n, r, checksum and doubling
    rounds are printed; the SA must be a permutation of [0, n] and every
    BWT char the one before its suffix.
+6. The streamed build (``--fused -m``) of the 1 MB pan-genome on the
+   card, with the streamed J2 and many emission chunks, library and CLI:
+   .bwt/.sa/.ssa/.esa must equal phase 4's CPU build.
+7. The streamed build of the 64 MB input (streamed J2 in 5 chunks, 9
+   emission chunks): its files must equal phase 5's, byte for byte.
+   Also the monolithic J2's peak device memory per input byte, the figure
+   behind fused_stream.J2_STREAM_ABOVE.
+8. The full size of the streamed path: the 1 GiB pan-genome of
+   benchmarks/stream_big.py (32 mutated copies of a 32 MiB unit, SNP rate
+   0.001, seed 4321) in checksum-only mode with the default chunk target
+   and the automatic J2 switch, which must choose the streamed J2; then
+   K1 on all of its codes against the plain cut scan on a window across
+   position 2**30 and on the last window.
+Each build is driven with the kernel launch counts set to 0 just before
+it and read just after, and must have launched K1.
 
 Then one JSON line of kernel numbers, the nvidia-smi line, and last the
 JSON result line.  Needs a CUDA card; without one it exits 2 and prints
@@ -52,6 +67,11 @@ K1_LENGTHS = (1, 15, 16, 17, 2047, 2049, 100_003, 1_000_037)  # and w - 1
 K1_OFFSETS = (0, 1)  # codes = buf[off:]; 1 starts off a 16-byte boundary
 # the TPU gather probe's shape (benchmarks/gather_probe.py:34-35, 164-168)
 GATHER_TABLE, GATHER_IDX = 1 << 20, 1 << 24
+# the full size of the streamed path (benchmarks/stream_big.py:29-50)
+BIG_MB, BIG_COPIES = 1024, 32
+# K1 on the whole big input is held against the plain cut scan on two
+# windows: one across this position, and the last one
+K1_WINDOW, K1_ACROSS = 16 << 20, 1 << 30
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # H100 SXM instruction issue: 132 SMs x 128 lanes x 1.98 GHz (boost), one
 # 32-bit instruction per lane per clock
@@ -82,14 +102,16 @@ def check(ok: bool, what: str):
         raise AssertionError(what)
 
 
-def pangenome_records(size_mb: int, seed: int = PAN_SEED):
-    """bench.py's pan-genome input, in memory: PAN_COPIES mutated copies
-    of one random ACGT unit, one record each."""
+def pangenome_records(size_mb: int, seed: int = PAN_SEED,
+                      copies: int = PAN_COPIES):
+    """bench.py's pan-genome input, in memory: ``copies`` mutated copies
+    of one random ACGT unit, one record each (with 32 copies, the input of
+    benchmarks/stream_big.py)."""
     rng = np.random.default_rng(seed)
     acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
-    unit = acgt[rng.integers(0, 4, size=(size_mb << 20) // PAN_COPIES)]
+    unit = acgt[rng.integers(0, 4, size=(size_mb << 20) // copies)]
     records = []
-    for i in range(PAN_COPIES):
+    for i in range(copies):
         hap = unit.copy()
         nmut = int(hap.size * PAN_SNP_RATE)
         pos = rng.integers(0, hap.size, size=nmut)
@@ -325,6 +347,7 @@ def phase_small():
     print(f"1 MB pan-genome: n={cpu.bwt.shape[0] - 1} r={cpu.nruns}; cuda "
           f"{t1 - t0:.2f} s and cpu {t2 - t1:.2f} s give identical "
           ".bwt/.sa/.ssa/.esa, library and CLI")
+    return records, cpu, fasta
 
 
 def phase_main(records, C):
@@ -364,6 +387,195 @@ def phase_main(records, C):
     t1 = time.perf_counter()
     check_bwt_sa(C, res.bwt, res.sa, "cuda")
     print(f"64 MB SA/BWT checks passed ({time.perf_counter() - t1:.2f} s)")
+    return launches, res, peak
+
+
+def fresh_memory():
+    """Between phases: the cached blocks released, the peak reset."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def stream_build(C, **kw):
+    """pfbwt_fused_stream on the card in file mode (in memory), with K1's
+    count set to 0 just before and read just after.  Returns (files, out,
+    info, launches, seconds, peak bytes)."""
+    import io
+
+    import torch
+
+    from pfbwtf_tpu_torch.ops.cuda import hash_scan as k1
+    from pfbwtf_tpu_torch.ops.fused_stream import pfbwt_fused_stream
+
+    fresh_memory()
+    bwt_fp, sa_fp, info = io.BytesIO(), io.BytesIO(), {}
+    k1.launches = 0
+    t0 = time.perf_counter()
+    out = pfbwt_fused_stream(C, W, P, bwt_fp=bwt_fp, sa_fp=sa_fp,
+                             want_rssa=True, device="cuda", info=info, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = k1.launches
+    check(launches >= 1, "the streamed build did not launch K1")
+    files = {"bwt": bwt_fp.getvalue(), "sa": sa_fp.getvalue(),
+             "ssa": out[3].tobytes(), "esa": out[4].tobytes()}
+    return files, out, info, launches, secs, torch.cuda.max_memory_allocated()
+
+
+def result_files(res):
+    """The .bwt/.sa/.ssa/.esa bytes of a BWTResult, 64-bit widths."""
+    return {"bwt": res.bwt.tobytes(), "sa": res.sa.astype("<u8").tobytes(),
+            "ssa": res.ssa.astype("<u8").tobytes(),
+            "esa": res.esa.astype("<u8").tobytes()}
+
+
+def stage_line(info) -> str:
+    """The stage seconds and chunking of a streamed build's ``info``."""
+    j2 = "streamed" if info["j2_stream"] else "monolithic"
+    return (f"J2 {info['j2_s']:.4f} s ({j2}, {info['j2_runs']} run), "
+            f"J3a {info['j3a_s']:.4f} s, "
+            f"{info['n_chunks']} emission chunks of chunk_b="
+            f"{info['chunk_b']} {info['chunks_s']:.4f} s")
+
+
+def phase_stream_small(records, cpu, fasta):
+    """The 1 MB pan-genome streamed on the card, many chunks and the
+    streamed J2, library and CLI, against the monolithic CPU build."""
+    from pfbwtf_tpu_torch.cli.pfbwt_f import main as cli_main
+    from pfbwtf_tpu_torch.ops.parse import ParserParams, build_stream
+
+    C, _, _ = build_stream(records, ParserParams(w=W, p=P))
+    files, out, info, launches, secs, _ = stream_build(
+        C, chunk_target=1 << 16, j2_stream=True, j2_chunk=1 << 18)
+    want = result_files(cpu)
+    for ext, data in want.items():
+        check(files[ext] == data, f"1 MB streamed: .{ext} differs from the "
+              "monolithic CPU build")
+    check(out[0] == cpu.nruns, "1 MB streamed: run counts differ")
+    check(info["n_chunks"] >= 8, "1 MB streamed: too few chunks")
+    prefix = os.path.join(os.path.dirname(fasta), "pan1mb_cuda_stream")
+    rc = cli_main([fasta, "-o", prefix, "--fused", "-m", "-s", "-r"])
+    check(rc == 0, f"CLI -m exit code {rc}")
+    for ext, data in want.items():
+        with open(f"{prefix}.{ext}", "rb") as f:
+            check(f.read() == data, f"CLI -m .{ext} differs from the CPU run")
+    print(f"1 MB streamed build: {secs:.2f} s, {stage_line(info)}, K1 "
+          f"launches {launches}; .bwt/.sa/.ssa/.esa equal the monolithic CPU "
+          "build, library and CLI (--fused -m -s -r)")
+    return launches
+
+
+def phase_stream_main(C, mono_res, mono_peak):
+    """The 64 MB input streamed (streamed J2, about 8 emission chunks)
+    against phase_main's result, and the monolithic J2's own peak."""
+    import torch
+
+    from pfbwtf_tpu_torch.ops import fused, fused_stream
+
+    fresh_memory()
+    C_len = C.shape[0]
+    chars_p = np.full(fused._bucket(C_len, 1 << 16), ord("A"), np.uint8)
+    chars_p[:C_len] = C
+    chars = torch.from_numpy(chars_p).cuda()
+    state = fused.run_parse(chars, C_len, W, P, fused._bucket(
+        fused.speculative_nphrases(C_len, P)))
+    torch.cuda.synchronize()
+    j2_peak = torch.cuda.max_memory_allocated()
+    del chars, state
+    per_byte = j2_peak / C_len
+    print(f"64 MB monolithic J2 peak device memory (upload included): "
+          f"{j2_peak} bytes, {per_byte:.2f} B per input byte; at "
+          f"{fused_stream.J2_MEMORY_SHARE} of 80e9 B that is "
+          f"{fused_stream.J2_MEMORY_SHARE * 80e9 / per_byte:.0f} input bytes "
+          f"(module switch J2_STREAM_ABOVE = {fused_stream.J2_STREAM_ABOVE}, "
+          f"from {fused_stream.J2_BYTES_PER_INPUT_BYTE} B a byte)")
+    check(per_byte <= fused_stream.J2_BYTES_PER_INPUT_BYTE,
+          "the monolithic J2 takes more memory a byte than the J2 switch "
+          "assumes")
+
+    files, out, info, launches, secs, peak = stream_build(
+        C, chunk_target=8 << 20, j2_stream=True, j2_chunk=16 << 20)
+    for ext, data in result_files(mono_res).items():
+        check(files[ext] == data, f"64 MB streamed: .{ext} differs from the "
+              "monolithic build")
+    check(out[0] == mono_res.nruns, "64 MB streamed: run counts differ")
+    check(info["n_chunks"] >= 5, "64 MB streamed: too few emission chunks")
+    print(f"64 MB streamed build: {secs:.4f} s end to end, "
+          f"{stage_line(info)}")
+    print(f"64 MB streamed peak device memory: {peak} bytes "
+          f"({peak / 2**30:.2f} GiB); monolithic {mono_peak} bytes "
+          f"({mono_peak / 2**30:.2f} GiB)")
+    print(f"64 MB streamed K1 launches: {launches}; .bwt/.sa/.ssa/.esa equal "
+          "the monolithic build byte for byte")
+    return launches
+
+
+def phase_stream_big():
+    """The streamed path at its full size: 1 GiB, checksum-only, default
+    chunk target, automatic J2 switch; then K1 past position 2**30."""
+    import torch
+
+    from pfbwtf_tpu_torch.ops import fused
+    from pfbwtf_tpu_torch.ops.cuda import hash_scan as k1
+    from pfbwtf_tpu_torch.ops.fused_stream import pfbwt_fused_stream
+    from pfbwtf_tpu_torch.ops.hash import mod_p, wang_hash, window_kmers
+    from pfbwtf_tpu_torch.ops.parse import ParserParams, build_stream
+    from pfbwtf_tpu_torch.utils.tables import ntoa_codes
+
+    t0 = time.perf_counter()
+    records = pangenome_records(BIG_MB, copies=BIG_COPIES)
+    C, _, _ = build_stream(records, ParserParams(w=W, p=P))
+    del records
+    n = C.shape[0]
+    print(f"{BIG_MB} MB input: {BIG_COPIES} haplotypes, n={n}, made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    fresh_memory()
+    info = {}
+    k1.launches = 0
+    t0 = time.perf_counter()
+    nruns, total, checksum = pfbwt_fused_stream(C, W, P, device="cuda",
+                                                info=info)
+    torch.cuda.synchronize()
+    e2e = time.perf_counter() - t0
+    launches = k1.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(nruns is None, "checksum-only mode fetched chunks")
+    check(info["j2_stream"], "the automatic J2 switch chose the monolithic "
+          f"J2 at {n} bytes")
+    check(total == n + 1, f"total {total} != n + 1")
+    check(launches >= 1, "the streamed build did not launch K1")
+    timed = info["j2_s"] + info["j3a_s"] + info["chunks_s"]
+    print(f"{BIG_MB} MB streamed build: {e2e:.4f} s end to end "
+          f"({n / e2e / 1e6:.2f} MB/s), {stage_line(info)}, host input "
+          f"check + padding {e2e - timed:.4f} s")
+    print(f"{BIG_MB} MB peak device memory: {peak} bytes "
+          f"({peak / 2**30:.2f} GiB); the peak so far as J2, J3a and the "
+          f"chunks ended: {info['peak_j2']}, {info['peak_j3a']}, "
+          f"{info['peak_chunks']} bytes")
+    print(f"{BIG_MB} MB n={info['n']} n_b={info['n_b']} nphrases="
+          f"{info['nphrases']} D={info['D']} dict_total={info['dict_total']} "
+          f"n_levels={info['n_levels']} rounds={dict(fused.suffix.rounds)} "
+          f"total={total} checksum={checksum} no bad lanes")
+    print(f"{BIG_MB} MB K1 launches: {launches}")
+
+    fresh_memory()
+    chars_p = np.full(info["n_b"], ord("A"), np.uint8)
+    chars_p[:n] = C
+    del C
+    codes = ntoa_codes(torch.from_numpy(chars_p).cuda())
+    del chars_p
+    flags = k1.cut_scan(codes, W, P)
+    win = K1_WINDOW
+    for lo in (K1_ACROSS - win // 2, info["n_b"] - win):
+        seg = codes[lo - (W - 1): lo + win]
+        plain = mod_p(wang_hash(window_kmers(seg, W)), P)[W - 1:] == 0
+        check(torch.equal(flags[lo: lo + win], plain),
+              f"K1 differs from plain on [{lo}, {lo + win})")
+        print(f"K1 on all {info['n_b']} codes: bit-equal to the plain cut "
+              f"scan on [{lo}, {lo + win}), {int(plain.sum())} cuts")
     return launches
 
 
@@ -385,6 +597,7 @@ def main() -> int:
     from pfbwtf_tpu_torch.ops.fused import _bucket
     from pfbwtf_tpu_torch.utils.tables import ntoa_codes
 
+    t_start = time.perf_counter()
     smi = phase_environment()
     records = pangenome_records(64)
     C, _, _ = build_stream(records, ParserParams(w=W, p=P))
@@ -395,8 +608,17 @@ def main() -> int:
     row = phase_k1(codes_main)
     del codes_main
     phase_gather_yardstick()
-    phase_small()
-    row["launches"] = phase_main(records, C)
+    small_records, small_cpu, small_fasta = phase_small()
+    row["launches"], mono_res, mono_peak = phase_main(records, C)
+    del records
+    by_path = {"fused 64 MB": row["launches"]}
+    by_path["fused -m 1 MB"] = phase_stream_small(small_records, small_cpu,
+                                                  small_fasta)
+    by_path["fused -m 64 MB"] = phase_stream_main(C, mono_res, mono_peak)
+    del C, mono_res
+    by_path[f"fused -m {BIG_MB} MB"] = phase_stream_big()
+    row["launches_by_path"] = by_path
+    print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [row]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,18 @@
 """pfbwt-f CLI of the port, flag-compatible with the reference binary
 (src/pfbwt-f.cpp:102-182):
 
-    python -m pfbwtf_tpu_torch.cli.pfbwt_f --fused -s -r [--u32] <fasta>
+    python -m pfbwtf_tpu_torch.cli.pfbwt_f --fused [-m] -s -r [--u32] <fasta>
 
-Only the fused whole-pipeline build (``--fused``) is ported; it runs on
-the CUDA card.  Every other mode exits 1 with a message.  ``--u32``
-selects the 32-bit build's file widths; the default is 64-bit.
+Only the fused whole-pipeline build (``--fused``) is ported, with its
+streamed form (``--fused -m``) for inputs past the one-program memory
+ceiling; both run on the CUDA card.  Every other mode exits 1 with a
+message.  ``--u32`` selects the 32-bit build's file widths; the default
+is 64-bit.
 """
 
 import argparse
 import sys
+from contextlib import nullcontext
 
 from ..io import formats
 from ..ops.parse import ParserParams
@@ -30,7 +33,8 @@ def build_argparser():
     ap.add_argument("-w", "--window-size", type=int, default=10, dest="w")
     ap.add_argument("-p", "--mod-val", type=int, default=100, dest="p")
     ap.add_argument("-m", "--mmap", action="store_true",
-                    help="out-of-core mode (not ported yet)")
+                    help="with --fused: the streamed build, which writes "
+                         ".bwt/.sa chunk by chunk")
     ap.add_argument("--parse-only", action="store_true")
     ap.add_argument("--pfbwt-only", action="store_true")
     ap.add_argument("--trim-non-acgt", action="store_true")
@@ -59,7 +63,7 @@ def build_argparser():
 
 # flags of the reference CLI whose modes this port does not have
 _UNPORTED_FLAGS = (
-    ("mmap", "-m/--mmap"), ("mesh", "--mesh"),
+    ("mesh", "--mesh"),
     ("parse_only", "--parse-only"), ("pfbwt_only", "--pfbwt-only"),
     ("print_docs", "--print-docs"), ("device", "--device"),
     ("chunk_mb", "--chunk-mb"), ("shards", "--shards"),
@@ -103,7 +107,9 @@ def main(argv=None, device="cuda"):
 
 
 def _run_fused(args, output: str, dtype, device) -> int:
-    """Whole-pipeline device run (ops/fused.py): .bwt/.sa[/.ssa/.esa]."""
+    """Whole-pipeline device run (ops/fused.py): .bwt/.sa[/.ssa/.esa].
+    With -m the streamed build (ops/fused_stream.py) runs instead and the
+    outputs leave the card chunk by chunk."""
     from ..io.fasta import read_fasta_bytes
     from ..ops.fused import pfbwt_fused_records
     from ..utils.timer import task_timer
@@ -112,12 +118,52 @@ def _run_fused(args, output: str, dtype, device) -> int:
         w=args.w, p=args.p, non_acgt_to_a=args.non_acgt_to_a,
         verbose=args.verbose,
     )
+    if args.mmap:
+        return _run_fused_stream(args, output, dtype, device, params)
     with task_timer("fused device pipeline (parse+pfbwt)"):
         res, _ = pfbwt_fused_records(
             read_fasta_bytes(args.fasta), params, device=device,
             want_sa=args.sa, want_rssa=args.rssa, sa_dtype=dtype,
         )
     return _write_fused_outputs(args, output, dtype, res)
+
+
+def _open_out(args, output: str, ext: str):
+    if args.stdout_ext == ext:
+        return nullcontext(sys.stdout.buffer)
+    return open(f"{output}.{ext}", "wb")
+
+
+def _run_fused_stream(args, output: str, dtype, device, params) -> int:
+    """The streamed build: .bwt/.sa written chunk by chunk, .ssa/.esa from
+    the run-length bookkeeping across chunks."""
+    from ..io.fasta import read_fasta_bytes
+    from ..ops.fused_stream import pfbwt_fused_stream
+    from ..ops.parse import build_stream
+    from ..utils.limits import check_text_width
+    from ..utils.timer import task_timer
+
+    C, _, _ = build_stream(read_fasta_bytes(args.fasta), params)
+    n = C.shape[0]
+    check_text_width(n, dtype)
+    with _open_out(args, output, "bwt") as bwt_fp, (
+        _open_out(args, output, "sa") if args.sa else nullcontext()
+    ) as sa_fp:
+        with task_timer("fused device pipeline, streamed (parse+pfbwt)"):
+            out = pfbwt_fused_stream(
+                C, args.w, args.p, bwt_fp=bwt_fp, sa_fp=sa_fp,
+                sa_dtype=dtype, want_rssa=args.rssa, device=device,
+            )
+    nruns = out[0]
+    if args.rssa:
+        with open(output + ".ssa", "wb") as f:
+            f.write(out[3].astype(dtype).tobytes())
+        with open(output + ".esa", "wb") as f:
+            f.write(out[4].astype(dtype).tobytes())
+    print(f"n: {n}", file=sys.stderr)
+    print(f"r: {nruns}", file=sys.stderr)
+    print(f"n/r: {n / nruns:.3f}", file=sys.stderr)
+    return 0
 
 
 def _write_fused_outputs(args, output: str, dtype, res) -> int:

@@ -86,58 +86,60 @@ def _lexsort(keys):
 # --------------------------------------------------------------------------
 
 
+def _inv_pow_at(base: int, s, tb: int):
+    """base^-s mod 2**64 at the positions ``s`` (0 <= s < tb), by binary
+    exponentiation over the bits of s."""
+    ipow = pow(int(base), -1, 1 << 64)
+    inv_s = torch.ones_like(s)
+    for j in range(max(int(np.ceil(np.log2(tb + 1))), 1)):
+        sq = _signed(pow(ipow, 1 << j, 1 << 64))
+        inv_s = torch.where(((s >> j) & 1) == 1, inv_s * sq, inv_s)
+    return inv_s
+
+
+def _powers(base: int, n: int, device):
+    """base^j mod 2**64 for j < n, as int64."""
+    b = torch.full((n,), _signed(base), dtype=torch.int64, device=device)
+    b[0] = 1
+    return torch.cumprod(b, 0)
+
+
 def _substring_hashes_dev(Tp, starts, lens, base: int):
     """Polynomial hash of Tp[s:s+l] per (s, l), mod 2**64:
     (G[s] - G[e]) * base^-s with G[i] = sum_{j>=i} c_j base^j.  int64
     cumprod / cumsum / multiply wrap mod 2**64 as the uint64 ones do."""
     c = Tp.to(torch.int64)
     tb = c.shape[0]
-    b = torch.full((tb,), _signed(base), dtype=torch.int64, device=Tp.device)
-    b[0] = 1
-    powers = torch.cumprod(b, 0)
+    powers = _powers(base, tb, Tp.device)
     G = torch.zeros(tb + 1, dtype=torch.int64, device=Tp.device)
     G[:tb] = torch.cumsum((c * powers).flip(0), 0).flip(0)
-    del b, powers
+    del powers
     s = torch.clamp(starts, 0, tb - 1)
     e = torch.clamp(starts + lens, 0, tb)
-    # base^-s by binary exponentiation over the bits of s, at the phrase
-    # positions only
-    ipow = pow(int(base), -1, 1 << 64)
-    inv_s = torch.ones_like(s)
-    for j in range(max(int(np.ceil(np.log2(tb + 1))), 1)):
-        sq = _signed(pow(ipow, 1 << j, 1 << 64))
-        inv_s = torch.where(((s >> j) & 1) == 1, inv_s * sq, inv_s)
-    return (G[s] - G[e]) * inv_s
+    return (G[s] - G[e]) * _inv_pow_at(base, s, tb)
 
 
-def _parse_core(chars_p, C_len: int, w: int, p: int, nph_b: int):
-    """Cut scan + compaction + phrase bounds + dict dedup + occurrence
-    metadata.  Returns (Tp, parse_ranks, occs, dict_start, dict_len, last,
-    sai, meta) with meta = [ncuts, D, dict_total, max dict_len]; valid
-    only when ncuts + 1 <= nph_b."""
-    dev = chars_p.device
-    n_b = chars_p.shape[0]
-    cut = cut_mask(ntoa_codes(chars_p), w, p)
-    cut &= torch.arange(n_b, device=dev) < C_len
-    ncuts = cut.sum()
-
-    # T' = Dollar + C + Dollar*w (pads of chars_p beyond C_len -> Dollar)
-    tb = n_b + w + 1
-    Tp = torch.full((tb,), Dollar, dtype=torch.uint8, device=dev)
-    Tp[1: C_len + 1] = chars_p[:C_len]
-
-    cuts = compact_indices(cut, nph_b, fill=n_b)
-    del cut
-    k = torch.arange(nph_b, device=dev)
-    valid = k <= ncuts  # nphrases = ncuts + 1
+def _phrase_bounds(cuts, ncuts, C_len: int, w: int):
+    """Phrase k spans [starts[k], ends[k]] of T' (phrases overlap by w);
+    lanes past nphrases = ncuts + 1 are invalid with length 0.  Returns
+    (k, valid, starts, lens, ends)."""
+    k = torch.arange(cuts.shape[0], device=cuts.device)
+    valid = k <= ncuts
     ends = torch.where(k < ncuts, cuts + 1, C_len + w)
     starts = torch.zeros_like(ends)
     starts[1:] = ends[:-1] - w + 1
     lens = torch.where(valid, ends - starts + 1, 0)
+    return k, valid, starts, lens, ends
 
-    # dedup by (len, h1, h2); sign-flipped hashes sort as uint64
-    h1 = torch.where(valid, _substring_hashes_dev(Tp, starts, lens, _HB1), 0)
-    h2 = torch.where(valid, _substring_hashes_dev(Tp, starts, lens, _HB2), 0)
+
+def _dedup_state(Tp, k, valid, starts, lens, ends, h1, h2, ncuts, w: int):
+    """Dict dedup by (len, h1, h2) and the per-occurrence metadata: the J2
+    state (Tp, parse_ranks, occs, dict_start, dict_len, last, sai, meta)
+    with meta = [ncuts, D, dict_total, max dict_len]."""
+    dev = Tp.device
+    nph_b = k.shape[0]
+    tb = Tp.shape[0]
+    # sign-flipped hashes sort as uint64
     key_l = torch.where(valid, lens, -1 - k)  # invalid lanes: distinct
     order = _lexsort((h2 ^ _SIGN, h1 ^ _SIGN, key_l, (~valid).to(torch.int64)))
     l_o, h1_o, h2_o, v_o = key_l[order], h1[order], h2[order], valid[order]
@@ -170,6 +172,171 @@ def _parse_core(chars_p, C_len: int, w: int, p: int, nph_b: int):
     dict_total = dict_len.sum() + D + 1
     meta = torch.stack((ncuts, D, dict_total, dict_len.max()))
     return Tp, parse_ranks, occs, dict_start, dict_len, last, sai, meta
+
+
+def _parse_core(chars_p, C_len: int, w: int, p: int, nph_b: int):
+    """Cut scan + compaction + phrase bounds + dict dedup + occurrence
+    metadata.  Returns (Tp, parse_ranks, occs, dict_start, dict_len, last,
+    sai, meta) with meta = [ncuts, D, dict_total, max dict_len]; valid
+    only when ncuts + 1 <= nph_b."""
+    dev = chars_p.device
+    n_b = chars_p.shape[0]
+    cut = cut_mask(ntoa_codes(chars_p), w, p)
+    cut &= torch.arange(n_b, device=dev) < C_len
+    ncuts = cut.sum()
+
+    # T' = Dollar + C + Dollar*w (pads of chars_p beyond C_len -> Dollar)
+    tb = n_b + w + 1
+    Tp = torch.full((tb,), Dollar, dtype=torch.uint8, device=dev)
+    Tp[1: C_len + 1] = chars_p[:C_len]
+
+    cuts = compact_indices(cut, nph_b, fill=n_b)
+    del cut
+    k, valid, starts, lens, ends = _phrase_bounds(cuts, ncuts, C_len, w)
+    h1 = torch.where(valid, _substring_hashes_dev(Tp, starts, lens, _HB1), 0)
+    h2 = torch.where(valid, _substring_hashes_dev(Tp, starts, lens, _HB2), 0)
+    return _dedup_state(Tp, k, valid, starts, lens, ends, h1, h2, ncuts, w)
+
+
+# --------------------------------------------------------------------------
+# J2 streamed: for inputs past the monolithic J2's memory ceiling
+# --------------------------------------------------------------------------
+
+
+def speculative_chunk_phrases(L: int, p: int) -> int:
+    """Phrase window of one chunk of the streamed J2 (the bound of
+    speculative_nphrases over one chunk's positions)."""
+    exp = L / max(p, 1)
+    return _bucket(int(exp + 8.0 * exp**0.5 + 4096.0))
+
+
+def _parse_core_stream(chars_p, C_len: int, w: int, p: int, nph_b: int,
+                       n_chunks: int, m_max: int):
+    """Streamed J2: the state of _parse_core, with meta gaining a 5th
+    scalar, the most phrase starts (or ends) in one chunk.  Only chunk-
+    (Lc, Lh) and phrase-sized (nph_b) arrays are ever 64 bits wide:
+
+    - pass A compacts the cut positions chunk by chunk, a running count
+      carried on the device;
+    - pass B computes the forward prefix F[i] = sum_{j<i} c_j base^j of T'
+      chunk by chunk, carrying (F, base^chunk_start), and samples it only
+      at the phrase starts and ends inside the chunk: phrases are in
+      position order, so those form the index window [lo[kc], lo[kc+1]),
+      read at its first m_max lanes.
+
+    h(s, e) = (F[e] - F[s]) * base^-s equals the monolithic
+    (G[s] - G[e]) * base^-s, so the dedup keys are bit-identical.  The
+    chunk grid is the JAX package's, so meta[4] is too.  The state is
+    valid only when ncuts + 1 <= nph_b and meta[4] <= m_max."""
+    dev = chars_p.device
+    n_b = chars_p.shape[0]
+    cut = cut_mask(ntoa_codes(chars_p), w, p)
+    cut[C_len:] = False
+    tb = n_b + w + 1
+    Tp = torch.full((tb,), Dollar, dtype=torch.uint8, device=dev)
+    Tp[1: C_len + 1] = chars_p[:C_len]
+
+    # pass A; cut positions past the bucket go to a spare slot, cut off.
+    # Its running count ends as ncuts: a sum over the whole mask would
+    # first copy it to int64
+    Lc = -(-n_b // n_chunks)
+    cuts = torch.full((nph_b + 1,), n_b, dtype=torch.int64, device=dev)
+    cnt = torch.zeros((), dtype=torch.int64, device=dev)
+    for lo in range(0, n_b, Lc):
+        cm = cut[lo: lo + Lc]
+        slot = cnt + torch.cumsum(cm, 0) - 1
+        cnt = slot[-1] + 1
+        slot = torch.where(cm & (slot < nph_b), slot, nph_b)
+        cuts.scatter_(0, slot, torch.arange(lo, lo + cm.shape[0], device=dev))
+    del cut, cm, slot
+    ncuts = cnt
+    k, valid, starts, lens, ends = _phrase_bounds(cuts[:nph_b], ncuts, C_len, w)
+
+    # pass B; tb + 1 positions, since the last phrase ends at tb itself,
+    # and a chunk length rounded to the JAX package's 2**15 grid
+    Lh = -(-(tb + 1) // n_chunks)
+    Lh = -(-Lh // (1 << 15)) * (1 << 15)
+    s_cl = torch.clamp(starts, 0, tb - 1)
+    e_cl = torch.clamp(starts + lens, 0, tb)
+    grid = torch.arange(n_chunks + 1, device=dev) * Lh
+    # invalid lanes sort past every grid point, so no window counts them
+    sent = 1 << 62
+    lo_s = torch.searchsorted(torch.where(valid, s_cl, sent), grid)
+    lo_e = torch.searchsorted(torch.where(valid, e_cl, sent), grid)
+    m_over = torch.maximum((lo_s[1:] - lo_s[:-1]).max(),
+                           (lo_e[1:] - lo_e[:-1]).max())
+    lo_s, lo_e = torch.stack((lo_s, lo_e)).tolist()  # one read for the pass
+    pad = torch.zeros(m_max, dtype=torch.int64, device=dev)
+    s_q, e_q = torch.cat((s_cl, pad)), torch.cat((e_cl, pad))
+    hashes = []
+    for base in (_HB1, _HB2):
+        pw = _powers(base, Lh, dev)
+        step = _signed(pow(base, Lh, 1 << 64))
+        F = torch.zeros((), dtype=torch.int64, device=dev)
+        bp = torch.ones((), dtype=torch.int64, device=dev)
+        Gs = torch.zeros(nph_b + m_max, dtype=torch.int64, device=dev)
+        Ge = torch.zeros_like(Gs)
+        for kc in range(n_chunks):
+            c = torch.full((Lh,), Dollar, dtype=torch.int64, device=dev)
+            seg = Tp[kc * Lh: (kc + 1) * Lh]
+            c[: seg.shape[0]] = seg
+            t = c * pw
+            cs = torch.cumsum(t, 0)
+            ex = cs - t  # F inside the chunk, exclusive
+            for lo, q, G in ((lo_s[kc], s_q, Gs), (lo_e[kc], e_q, Ge)):
+                # lo <= nph_b and q, G hold nph_b + m_max lanes: the window
+                # never runs short, as the JAX dynamic_slice never clamps
+                j = q[lo: lo + m_max] - kc * Lh
+                ok = (j >= 0) & (j < Lh)
+                v = F + bp * ex[torch.clamp(j, 0, Lh - 1)]
+                G[lo: lo + m_max] = torch.where(ok, v, G[lo: lo + m_max])
+            F = F + bp * cs[-1]
+            bp = bp * step
+        del pw, c, t, cs, ex
+        h = (Ge[:nph_b] - Gs[:nph_b]) * _inv_pow_at(base, s_cl, tb)
+        hashes.append(torch.where(valid, h, 0))
+    state = _dedup_state(Tp, k, valid, starts, lens, ends, *hashes, ncuts, w)
+    return (*state[:-1], torch.cat((state[-1], m_over.reshape(1))))
+
+
+def _rerun_until_held(j2, nph_b: int, m_max: int = 0):
+    """Run ``j2(nph_b, m_max)`` at the speculative buckets and again at
+    the exact ones until its state holds: ncuts + 1 <= nph_b and, for the
+    streamed J2, meta[4] <= m_max.  Both are checked on every run, since
+    a run whose phrase bucket overflowed counted meta[4] over truncated
+    cuts.  Returns (state, [ncuts, D, dict_total, max_len], runs)."""
+    runs = 0
+    while True:
+        state = j2(nph_b, m_max)
+        runs += 1
+        meta = state[-1].tolist()  # host sync
+        ncuts = meta[0]
+        m_over = meta[4] if len(meta) > 4 else 0
+        if ncuts == 0:
+            die("error: only one dict word total. "
+                "Re-run with a smaller p modulus")
+        if ncuts + 1 <= nph_b and m_over <= m_max:
+            return state, meta[:4], runs
+        nph_b = _bucket(max(ncuts + 1, nph_b))
+        m_max = max(m_max, _bucket(m_over))
+
+
+def run_parse(chars, C_len: int, w: int, p: int, nph_b: int):
+    """The monolithic J2 until its phrase bucket holds."""
+    return _rerun_until_held(
+        lambda nb, _: _parse_core(chars, C_len, w, p, nb), nph_b)
+
+
+def run_parse_stream(chars, C_len: int, w: int, p: int, nph_b: int,
+                     chunk_target: int = 32 << 20):
+    """The streamed J2 over chunks of about ``chunk_target`` positions,
+    until its phrase bucket and its per-chunk phrase window hold."""
+    n_b = chars.shape[0]
+    n_chunks = max(-(-n_b // chunk_target), 1)
+    return _rerun_until_held(
+        lambda nb, mm: _parse_core_stream(chars, C_len, w, p, nb, n_chunks,
+                                          mm),
+        nph_b, speculative_chunk_phrases(-(-n_b // n_chunks), p))
 
 
 # --------------------------------------------------------------------------
@@ -310,18 +477,9 @@ def pfbwt_fused_device(C: np.ndarray, w: int, p: int, want_sa: bool = False,
     t0 = time.perf_counter()
     chars = torch.from_numpy(chars_p).to(dev)
 
-    nph_b = _bucket(speculative_nphrases(C_len, p))
-    j2_runs = 0
-    while True:
-        state = _parse_core(chars, C_len, w, p, nph_b)
-        j2_runs += 1
-        ncuts, D, dict_total, max_len = state[-1].tolist()  # host sync
-        if ncuts == 0:
-            die("error: only one dict word total. "
-                "Re-run with a smaller p modulus")
-        if ncuts + 1 <= nph_b:
-            break
-        nph_b = _bucket(ncuts + 1)  # speculative bound overflowed
+    state, (ncuts, D, dict_total, max_len), j2_runs = run_parse(
+        chars, C_len, w, p, _bucket(speculative_nphrases(C_len, p)))
+    nph_b = state[1].shape[0]
     t1 = time.perf_counter()
     del chars
     nphrases = ncuts + 1

@@ -41,10 +41,11 @@ UPPER_TABLE[ord("a"): ord("z") + 1] -= 32
 def ntoa_codes(chars_u8: torch.Tensor) -> torch.Tensor:
     """NTOA_TABLE as compares and selects, for chars already validated by
     the caller (no byte that the table maps to 5): A/a/N/n->0, C/c->1,
-    G/g->2, T/t/'-'->3."""
+    G/g->2, T/t/'-'->3.  Masked fills: an assignment through a bool mask
+    would build the int64 indices of its lanes (and wait for the card)."""
     u = chars_u8 & 0xDF  # uppercase ASCII letters
     codes = torch.zeros_like(chars_u8)
-    codes[u == ord("C")] = 1
-    codes[u == ord("G")] = 2
-    codes[(u == ord("T")) | (chars_u8 == ord("-"))] = 3
+    codes.masked_fill_(u == ord("C"), 1)
+    codes.masked_fill_(u == ord("G"), 2)
+    codes.masked_fill_((u == ord("T")) | (chars_u8 == ord("-")), 3)
     return codes

@@ -2,11 +2,14 @@
 """Where the time of the port's fused build goes, on one CUDA card.
 
     python scripts/profile_fused_torch.py [--size-mb 64] [--top 20]
+    python scripts/profile_fused_torch.py --stream --size-mb 1024 \
+        --copies 32
 
-Builds chip_smoke.py's pan-genome input (seed 4321, w=10, p=100), runs
-pfbwtf_tpu_torch's fused build once to warm up, once more unprofiled for
-the stage times, then once under torch.profiler (CPU and CUDA
-activities).  Prints the stage seconds of the unprofiled run, the wall
+Builds chip_smoke.py's pan-genome input (seed 4321, w=10, p=100, 8
+copies unless --copies), runs pfbwtf_tpu_torch's fused build (with
+--stream the streamed build, checksum-only, default chunk target and J2
+switch) once to warm up, once more unprofiled for the stage times, then
+once under torch.profiler (CPU and CUDA activities).  Prints the stage seconds of the unprofiled run, the wall
 seconds of the profiled run, the device time summed over all kernels and
 its share of that wall time (the device-busy share; the rest is idle),
 and the ops with the most device time.  Needs a CUDA card.
@@ -32,6 +35,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--size-mb", type=int, default=64)
     ap.add_argument("--top", type=int, default=20)
+    ap.add_argument("--copies", type=int, default=8)
+    ap.add_argument("--stream", action="store_true",
+                    help="the streamed build (--fused -m)")
     args = ap.parse_args(argv)
 
     import torch
@@ -43,26 +49,42 @@ def main(argv=None) -> int:
         return 2
     import chip_smoke
     from pfbwtf_tpu_torch.ops.fused import pfbwt_fused_records
-    from pfbwtf_tpu_torch.ops.parse import ParserParams
+    from pfbwtf_tpu_torch.ops.fused_stream import pfbwt_fused_stream
+    from pfbwtf_tpu_torch.ops.parse import ParserParams, build_stream
 
-    records = chip_smoke.pangenome_records(args.size_mb)
+    records = chip_smoke.pangenome_records(args.size_mb, copies=args.copies)
     params = ParserParams(w=chip_smoke.W, p=chip_smoke.P)
+    if args.stream:
+        C, _, _ = build_stream(records, params)
+        del records
 
     def run():
+        if args.stream:
+            info = {}
+            pfbwt_fused_stream(C, params.w, params.p, device="cuda",
+                               info=info)
+            return None, info
         return pfbwt_fused_records(records, params, device="cuda",
                                    want_sa=True, want_rssa=True)
 
     run()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     _, info = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     print(f"card: {chip_smoke._nvidia_smi()}")
-    print(f"{args.size_mb} MB unprofiled: e2e {wall:.4f} s, host_s "
-          f"{info['host_s']:.4f}, j2_s {info['j2_s']:.4f}, j3_s "
-          f"{info['j3_s']:.4f}, fetch_s {info['fetch_s']:.4f}, records to "
-          f"stream {info['stream_s']:.4f}")
+    if args.stream:
+        print(f"{args.size_mb} MB streamed, unprofiled: e2e {wall:.4f} s, "
+              f"{chip_smoke.stage_line(info)}; peak so far as J2, J3a and "
+              f"the chunks ended {info['peak_j2']}, {info['peak_j3a']}, "
+              f"{info['peak_chunks']} B")
+    else:
+        print(f"{args.size_mb} MB unprofiled: e2e {wall:.4f} s, host_s "
+              f"{info['host_s']:.4f}, j2_s {info['j2_s']:.4f}, j3_s "
+              f"{info['j3_s']:.4f}, fetch_s {info['fetch_s']:.4f}, records "
+              f"to stream {info['stream_s']:.4f}")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

@@ -1,5 +1,5 @@
-"""The port's CLI (``python -m pfbwtf_tpu_torch.cli.pfbwt_f --fused``)
-writes the same bytes as the pfbwtf_tpu CLI."""
+"""The port's CLI (``python -m pfbwtf_tpu_torch.cli.pfbwt_f --fused
+[-m]``) writes the same bytes as the pfbwtf_tpu CLI."""
 
 import numpy as np
 import pytest
@@ -42,8 +42,29 @@ def test_cli_fused_bytes_equal_jax(tmp_path, extra):
     assert len((tmp_path / "port.sa").read_bytes()) == n1 * width
 
 
+@pytest.mark.parametrize("extra", [[], ["--u32"]])
+def test_cli_fused_stream_bytes_equal_jax_and_fused(tmp_path, extra):
+    """--fused -m -s -r: the same files as the JAX CLI's --fused -m and as
+    the port's own --fused."""
+    fa = tmp_path / "in.fa"
+    _fasta(fa)
+    args = ["-s", "-r", *extra]
+    assert jax_main([str(fa), "-o", str(tmp_path / "jax"), "--fused", "-m",
+                     *args]) == 0
+    assert torch_main([str(fa), "-o", str(tmp_path / "port"), "--fused",
+                       "-m", *args], device="cpu") == 0
+    assert torch_main([str(fa), "-o", str(tmp_path / "mono"), "--fused",
+                       *args], device="cpu") == 0
+    for ext in ("bwt", "sa", "ssa", "esa"):
+        got = (tmp_path / f"port.{ext}").read_bytes()
+        assert len(got) > 0
+        assert got == (tmp_path / f"jax.{ext}").read_bytes(), ext
+        assert got == (tmp_path / f"mono.{ext}").read_bytes(), ext
+
+
 @pytest.mark.parametrize("args", [
-    [], ["--fused", "-m"], ["--fused", "--mesh"], ["--fused", "--parse-only"],
+    [], ["-m"], ["--fused", "-m", "--mesh"], ["--fused", "--mesh"],
+    ["--fused", "--parse-only"],
     ["--fused", "--pfbwt-only"], ["--fused", "--print-docs"],
     ["--fused", "--device"], ["--fused", "--chunk-mb", "4"],
     ["--fused", "--shards", "2"], ["--fused", "--workers", "2"],

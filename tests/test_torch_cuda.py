@@ -2,14 +2,17 @@
 PyTorch version and the CPU run.  Marked ``cuda``: each test skips when
 no card is present.  On the card: ``python -m pytest -m cuda tests/``."""
 
+import io
+
 import numpy as np
 import pytest
 import torch
 
 from pfbwtf_tpu_torch.ops.cuda import hash_scan as k1
 from pfbwtf_tpu_torch.ops.fused import pfbwt_fused_records
+from pfbwtf_tpu_torch.ops.fused_stream import pfbwt_fused_stream
 from pfbwtf_tpu_torch.ops.hash import hash_scan
-from pfbwtf_tpu_torch.ops.parse import ParserParams
+from pfbwtf_tpu_torch.ops.parse import ParserParams, build_stream
 from pfbwtf_tpu_torch.testing import plant_cuts
 
 pytestmark = pytest.mark.cuda
@@ -67,3 +70,26 @@ def test_fused_card_equals_cpu(card):
     want, _ = pfbwt_fused_records(records, ParserParams(), device="cpu", **kw)
     for field in ("bwt", "sa", "ssa", "esa"):
         assert np.array_equal(getattr(got, field), getattr(want, field))
+
+
+def test_fused_stream_card_equals_cpu(card):
+    """The streamed build with the streamed J2 and many emission chunks:
+    the same files on the card as on the CPU, and K1 launched."""
+    rng = np.random.default_rng(6)
+    C, _, _ = build_stream([("s", rng.choice(ACGT, size=40000))],
+                           ParserParams())
+    outs = []
+    for device in ("cuda", "cpu"):
+        bwt_fp, sa_fp, info = io.BytesIO(), io.BytesIO(), {}
+        before = k1.launches
+        out = pfbwt_fused_stream(C, 10, 100, bwt_fp=bwt_fp, sa_fp=sa_fp,
+                                 want_rssa=True, chunk_target=1 << 12,
+                                 j2_stream=True, j2_chunk=1 << 14,
+                                 device=device, info=info)
+        assert info["n_chunks"] >= 8
+        if device == "cuda":
+            assert k1.launches > before
+        outs.append((bwt_fp.getvalue(), sa_fp.getvalue(), out))
+    (gb, gs, go), (cb, cs, co) = outs
+    assert gb == cb and gs == cs and go[:3] == co[:3]
+    assert np.array_equal(go[3], co[3]) and np.array_equal(go[4], co[4])
