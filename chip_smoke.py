@@ -16,8 +16,14 @@ line:
    path's shape with the 64 MB input's own codes: CUDA-event median times
    of both (K1 one launch at a time, and in batches of 20 back to back),
    K1's bound and the share of it reached by each time.
-3. The yardstick of the TPU gather probe's kernels K2-K4, which the port
-   does not have: torch.take at their shape, beside their bytes bound.
+3. Kernels K2-K4 (the TPU gather probe's table gathers) against their
+   plain versions on the card, bit for bit: tables of 1, 1000 and 2^20
+   entries, index lengths from 1 to 1,000,003, a view one element past an
+   allocation, out-of-range lanes for K3 (wrap, fill) and K4 (clip), and
+   the probe's shape (2^20 table, 2^24 indices); there CUDA-event median
+   times one launch at a time and in batches of 20, torch.take's in the
+   same call, and the share of the bytes bound reached; then
+   probes/gather_probe.main with the launch counts set to 0 before it.
 4. The whole fused build of a 1 MB pan-genome on the card against the
    same build on the CPU, through pfbwt_fused_records and through the
    CLI (``--fused -s -r``): .bwt/.sa/.ssa/.esa bytes must be identical.
@@ -34,14 +40,24 @@ line:
    emission chunks): its files must equal phase 5's, byte for byte.
    Also the monolithic J2's peak device memory per input byte, the figure
    behind fused_stream.J2_STREAM_ABOVE.
-8. The full size of the streamed path: the 1 GiB pan-genome of
+8. The staged build (pfbwt_f -s -r, no --fused) of the 1 MB pan-genome
+   on the card against the CPU, through the library (run_parser +
+   run_pfbwt) and the CLI: all eleven files (.dict .occ .parse .n
+   .bwlast .ilist .bwsai .bwt .sa .ssa .esa) identical; the chunked
+   parse in several chunks against the whole-array parse.
+9. The staged build of the 64 MB input: .bwt/.sa/.ssa/.esa equal phase
+   5's, one K1 launch, stage seconds and peak device memory; then
+   --chunk-mb 16 on the same input: all eleven files equal the
+   whole-array staged run's, one K1 launch per chunk.
+10. The full size of the streamed path: the 1 GiB pan-genome of
    benchmarks/stream_big.py (32 mutated copies of a 32 MiB unit, SNP rate
    0.001, seed 4321) in checksum-only mode with the default chunk target
    and the automatic J2 switch, which must choose the streamed J2; then
    K1 on all of its codes against the plain cut scan on a window across
    position 2**30 and on the last window.
 Each build is driven with the kernel launch counts set to 0 just before
-it and read just after, and must have launched K1.
+it and read just after, and must have launched K1; the gather probe must
+have launched K2-K4.
 
 Then one JSON line of kernel numbers, the nvidia-smi line, and last the
 JSON result line.  Needs a CUDA card; without one it exits 2 and prints
@@ -283,30 +299,123 @@ def phase_k1(codes_main: "torch.Tensor"):
     }
 
 
-def phase_gather_yardstick():
-    """torch.take at the shape of the TPU gather probe's kernels K2-K4
-    (out[i] = table[idx[i]], a table of 2^20 int32 and 2^24 indices).
-    The port has no kernel for them; this is the library call their rows
-    are held against.  The bound counts the function's bytes: the
-    indices read and the output written once, 4 B each, and the table
-    read once."""
+GATHER_ROWS = (  # (wrapper, TPU kernel it replaces)
+    ("take", "benchmarks/gather_probe.py:75"),
+    ("take_along", "benchmarks/gather_probe.py:108"),
+    ("take_rows", "benchmarks/gather_probe.py:145"),
+)
+GATHER_TABLES = (1, 1000, GATHER_TABLE)
+GATHER_LENGTHS = (1, 3, 4, 5, 8191, 1_000_003)
+
+
+def phase_gather():
+    """K2-K4 against their plain versions on the card, bit for bit: the
+    TPU probe's shape, tables of 1, 1000 and 2^20 entries, ragged index
+    lengths, an index view one element past an allocation (off a 16-byte
+    boundary) and, for K3 and K4, out-of-range lanes; then times at the
+    probe's shape beside torch.take and the bound, and the probe itself
+    (probes/gather_probe.main) with the launch counts set to 0 just
+    before and read just after.  Returns the kernels' rows."""
     import torch
 
-    rng = np.random.default_rng(0)
-    table_np = rng.integers(0, 1 << 30, size=GATHER_TABLE, dtype=np.int32)
-    idx_np = rng.integers(0, GATHER_TABLE, size=GATHER_IDX, dtype=np.int32)
-    table = torch.from_numpy(table_np).cuda()
-    idx = torch.from_numpy(idx_np.astype(np.int64)).cuda()  # take: int64
-    out = torch.take(table, idx)
-    check(np.array_equal(out.cpu().numpy(), table_np[idx_np]),
-          "torch.take differs from numpy")
-    ms = _median_ms(lambda: torch.take(table, idx), 20, per=20)
+    from pfbwtf_tpu_torch.ops import gather
+    from pfbwtf_tpu_torch.ops.cuda import gather as kernels
+    from pfbwtf_tpu_torch.probes import gather_probe
+
+    def _int_err(got, want) -> int:
+        return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+    rng = np.random.default_rng(11)
+    max_err = {name: 0 for name, _ in GATHER_ROWS}
+    runs = 0
+    for t in GATHER_TABLES:
+        table = torch.from_numpy(rng.integers(
+            -(1 << 31), (1 << 31) - 1, size=t, dtype=np.int32)).cuda()
+        for n in GATHER_LENGTHS:
+            for off in (0, 1):
+                for name, _ in GATHER_ROWS:
+                    # K3 and K4 take every index: [-2T, 2T) has lanes that
+                    # wrap, fill (K3) and clip (K4)
+                    lo, hi = (0, t) if name == "take" else (-2 * t, 2 * t)
+                    buf = torch.from_numpy(rng.integers(
+                        lo, hi, size=n + off, dtype=np.int32)).cuda()
+                    idx = buf[off:]
+                    got = getattr(kernels, name)(table, idx)
+                    want = getattr(gather, name + "_plain")(table, idx)
+                    torch.cuda.synchronize()
+                    err = _int_err(got, want)
+                    max_err[name] = max(max_err[name], err)
+                    check(err == 0, f"{name} differs from plain at T={t} "
+                          f"n={n} offset={off}")
+                    runs += 1
+    print(f"K2-K4 grid: tables {GATHER_TABLES} x lengths {GATHER_LENGTHS} x "
+          f"offsets (0, 1): {runs} runs bit-equal to the plain versions, "
+          "out-of-range lanes included for K3 and K4")
+
+    rng = np.random.default_rng(0)  # the probe's inputs
+    table = torch.from_numpy(rng.integers(
+        0, 1 << 30, size=GATHER_TABLE, dtype=np.int32)).cuda()
+    idx = torch.from_numpy(rng.integers(
+        0, GATHER_TABLE, size=GATHER_IDX, dtype=np.int32)).cuda()
+    idx64 = idx.to(torch.int64)  # torch.take takes int64 indices only
+    wild = torch.from_numpy(rng.integers(
+        -2 * GATHER_TABLE, 2 * GATHER_TABLE, size=GATHER_IDX,
+        dtype=np.int32)).cuda()
     nbytes = 4 * GATHER_IDX * 2 + 4 * GATHER_TABLE
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"K2-K4 yardstick: torch.take of {GATHER_IDX} int64 indices into "
-          f"a {GATHER_TABLE}-entry int32 table {ms:.4f} ms; bound "
-          f"{bound_ms:.4f} ms (bytes; {nbytes} B at 3.35 TB/s), "
-          f"{bound_ms / ms:.3f} of the time")
+    rows = []
+    for name, replaces in GATHER_ROWS:
+        kern = getattr(kernels, name)
+        plain = getattr(gather, name + "_plain")
+        for what, ix in (("in-range", idx), ("[-2T, 2T)", wild)):
+            if name == "take" and ix is wild:
+                continue  # K2's indices are promised in range
+            got, want = kern(table, ix), plain(table, ix)
+            torch.cuda.synchronize()
+            err = _int_err(got, want)
+            max_err[name] = max(max_err[name], err)
+            check(err == 0, f"{name} differs from plain at the probe's "
+                  f"shape ({what} indices)")
+        del got, want
+        ms = _median_ms(lambda: kern(table, idx), 50)
+        ms_batched = _median_ms(lambda: kern(table, idx), 20, per=20)
+        plain_ms = _median_ms(lambda: plain(table, idx), 10)
+        take_ms = _median_ms(lambda: torch.take(table, idx64), 50)
+        take_batched = _median_ms(lambda: torch.take(table, idx64), 20,
+                                  per=20)
+        print(f"{name} at the probe's shape (T={GATHER_TABLE}, "
+              f"{GATHER_IDX} indices): bit-equal; {ms:.4f} ms one launch at "
+              f"a time, {ms_batched:.4f} ms batched, plain {plain_ms:.4f} "
+              f"ms, torch.take {take_ms:.4f} ms one at a time and "
+              f"{take_batched:.4f} ms batched; bound {bound_ms:.4f} ms "
+              f"(bytes; {nbytes} B at 3.35 TB/s), {bound_ms / ms:.3f} of the "
+              f"time one at a time, {bound_ms / ms_batched:.3f} batched")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "pfbwtf_tpu_torch/csrc/gather.cu", "replaces": replaces,
+            "launches": None, "max_abs_err": None, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": take_ms, "bound_share": bound_ms / ms,
+            "ms_batched": ms_batched,
+            "bound_share_batched": bound_ms / ms_batched,
+            "library_ms_batched": take_batched,
+        })
+    del table, idx, idx64, wild
+    for row in rows:
+        row["max_abs_err"] = max_err[row["name"]]
+        kernels.launches[row["name"]] = 0
+    res = gather_probe.main([], device="cuda")
+    torch.cuda.synchronize()
+    for row in rows:
+        row["launches"] = kernels.launches[row["name"]]
+        row["launches_by_path"] = {"gather probe": row["launches"]}
+        check(row["launches"] >= 1, f"the gather probe did not launch "
+              f"{row['name']}")
+    check(all(ok for label, (_, ok) in res.items() if label != "torch.take"),
+          "the gather probe's kernels do not match torch.take")
+    print(f"gather probe launches: "
+          f"{ {r['name']: r['launches'] for r in rows} }")
+    return rows
 
 
 def phase_small():
@@ -513,6 +622,168 @@ def phase_stream_main(C, mono_res, mono_peak):
     return launches
 
 
+ELEVEN = ("dict", "occ", "parse", "n", "bwlast", "ilist", "bwsai", "bwt",
+          "sa", "ssa", "esa")
+CHUNK_MB = 16
+
+
+def read_files(prefix: str, exts=ELEVEN):
+    out = {}
+    for ext in exts:
+        with open(f"{prefix}.{ext}", "rb") as f:
+            out[ext] = f.read()
+    return out
+
+
+def remove_files(prefix: str):
+    for ext in ELEVEN:
+        os.remove(f"{prefix}.{ext}")
+
+
+def staged_build(fasta: str, prefix: str, device: str = "cuda",
+                 chunk: int = 0):
+    """The staged build with -s -r through the library, as the CLI runs
+    it (pipeline.run_parser, or run_parser_chunked for --chunk-mb, then
+    run_pfbwt), with K1's count set to 0 just before and read just after.
+    Returns (n, info, launches, seconds, peak device bytes or None)."""
+    import torch
+
+    from pfbwtf_tpu_torch.ops.cuda import hash_scan as k1
+    from pfbwtf_tpu_torch.ops.parse import ParserParams
+    from pfbwtf_tpu_torch.pipeline import (PfbwtConfig, run_parser,
+                                           run_parser_chunked, run_pfbwt)
+
+    if device == "cuda":
+        fresh_memory()
+    params = ParserParams(w=W, p=P, get_sai=True)
+    info = {}
+    k1.launches = 0
+    t0 = time.perf_counter()
+    if chunk:
+        n = run_parser_chunked(fasta, prefix, params, chunk, device=device,
+                               info=info)
+    else:
+        n = run_parser(fasta, prefix, params, device=device, info=info)
+    run_pfbwt(PfbwtConfig(prefix=prefix, w=W, sa=True, rssa=True,
+                          device=device), n, info)
+    peak = None
+    if device == "cuda":
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    return n, info, k1.launches, time.perf_counter() - t0, peak
+
+
+def staged_line(info) -> str:
+    keys = ("read_s", "stream_s", "scan_s", "dedup_s", "parse_bwt_s",
+            "assembly_s", "write_s")
+    return ", ".join(f"{k} {info[k]:.4f}" for k in keys if k in info)
+
+
+def phase_staged_small(fasta: str, cpu):
+    """The staged build of the 1 MB pan-genome: card against CPU through
+    the library and the card's CLI (-s -r), all eleven files; the .bwt,
+    .sa, .ssa and .esa also equal phase 4's fused CPU build; then the
+    chunked parse in several chunks against the whole-array parse."""
+    import torch
+
+    from pfbwtf_tpu_torch import engine
+    from pfbwtf_tpu_torch.cli.pfbwt_f import main as cli_main
+    from pfbwtf_tpu_torch.ops.chunked import parse_fasta_chunked
+    from pfbwtf_tpu_torch.ops.cuda import hash_scan as k1
+    from pfbwtf_tpu_torch.ops.parse import ParserParams
+
+    out_dir = os.path.dirname(fasta)
+    pre = {d: os.path.join(out_dir, f"pan1mb_staged_{d}")
+           for d in ("cuda", "cpu", "cli")}
+    _, info, launches, secs, _ = staged_build(fasta, pre["cuda"])
+    check(launches == 1, f"staged 1 MB: {launches} K1 launches, not 1")
+    _, _, _, cpu_secs, _ = staged_build(fasta, pre["cpu"], device="cpu")
+    want = read_files(pre["cpu"])
+    check(read_files(pre["cuda"]) == want,
+          "staged 1 MB: the card's files differ from the CPU's")
+    for ext, data in result_files(cpu).items():
+        check(want[ext] == data, f"staged 1 MB: .{ext} differs from the "
+              "fused build")
+    rc = cli_main([fasta, "-o", pre["cli"], "-s", "-r"])
+    check(rc == 0, f"staged CLI exit code {rc}")
+    check(read_files(pre["cli"]) == want,
+          "staged 1 MB: the CLI's files differ from the CPU's")
+    print(f"1 MB staged build: cuda {secs:.2f} s ({staged_line(info)}), cpu "
+          f"{cpu_secs:.2f} s; all eleven files identical, library and CLI "
+          "(-s -r), and .bwt/.sa/.ssa/.esa equal the fused build")
+
+    params = ParserParams(w=W, p=P, get_sai=True)
+    whole = engine.parse_fasta(fasta, params, device="cuda")
+    chunk = 1 << 18
+    cinfo = {}
+    k1.launches = 0
+    got = parse_fasta_chunked(fasta, params, chunk=chunk, device="cuda",
+                              info=cinfo)
+    torch.cuda.synchronize()
+    check(k1.launches == cinfo["n_chunks"] == -(-got.n // chunk),
+          f"chunked 1 MB: {k1.launches} K1 launches for "
+          f"{cinfo['n_chunks']} chunks")
+    for f in ("dict_starts", "dict_lens", "occs", "parse_ranks", "last",
+              "sai"):
+        check(np.array_equal(getattr(got, f), getattr(whole, f)),
+              f"chunked 1 MB: {f} differs from the whole-array parse")
+    check(np.array_equal(got.dict_flat(), whole.dict_flat()),
+          "chunked 1 MB: .dict differs from the whole-array parse")
+    print(f"1 MB chunked parse: {cinfo['n_chunks']} chunks of {chunk} codes, "
+          f"{k1.launches} K1 launches, equal to the whole-array parse")
+    for prefix in pre.values():
+        remove_files(prefix)
+    return launches
+
+
+def phase_staged_main(fasta: str, C_len: int, fused_files):
+    """The staged build of the 64 MB input (-s -r): .bwt/.sa/.ssa/.esa
+    equal the fused build's, one K1 launch, stage seconds and peak; then
+    --chunk-mb 16 on the same input, all eleven files equal the
+    whole-array staged run's, one K1 launch per chunk."""
+    from pfbwtf_tpu_torch import native
+
+    out_dir = os.path.dirname(fasta)
+    whole_pre = os.path.join(out_dir, "pan64_staged")
+    n, info, launches, secs, peak = staged_build(fasta, whole_pre)
+    check(n == C_len, f"staged 64 MB: n={n}, the input has {C_len}")
+    whole = read_files(whole_pre)
+    for ext, data in fused_files.items():
+        check(whole[ext] == data, f"staged 64 MB: .{ext} differs from the "
+              "fused build")
+    check(launches == 1, f"staged 64 MB: {launches} K1 launches, not 1")
+    print(f"64 MB staged build: {secs:.4f} s end to end ({staged_line(info)})")
+    print(f"64 MB staged dedup: rows of {info['dedup_ncols']} 8-byte columns, "
+          f"{info['dedup_rows_bytes']} bytes; lexsort "
+          f"{info['dedup_lexsort_s']:.4f} s ({info['dedup_ncols']} stable "
+          "sorts)")
+    print(f"64 MB staged peak device memory: {peak} bytes "
+          f"({peak / 2**30:.2f} GiB); K1 launches {launches}; "
+          ".bwt/.sa/.ssa/.esa equal the fused build")
+
+    chunk = CHUNK_MB << 20
+    chunk_pre = os.path.join(out_dir, "pan64_chunked")
+    _, cinfo, claunch, csecs, cpeak = staged_build(fasta, chunk_pre,
+                                                   chunk=chunk)
+    check(read_files(chunk_pre) == whole, f"--chunk-mb {CHUNK_MB}: the files "
+          "differ from the whole-array staged build")
+    n_chunks = -(-C_len // chunk)
+    check(claunch == cinfo["n_chunks"] == n_chunks,
+          f"--chunk-mb {CHUNK_MB}: {claunch} K1 launches for {n_chunks} "
+          "chunks")
+    print(f"64 MB --chunk-mb {CHUNK_MB}: {csecs:.4f} s end to end "
+          f"({staged_line(cinfo)}); host dedup "
+          f"{'native rank_substrings' if native.available() else 'numpy'}")
+    print(f"64 MB --chunk-mb {CHUNK_MB}: {claunch} K1 launches = "
+          f"ceil({C_len} / {chunk}) = {n_chunks} chunks, 0 re-scans (each "
+          f"chunk compacted exactly); peak device memory {cpeak} bytes "
+          f"({cpeak / 2**30:.2f} GiB); all eleven files equal the "
+          "whole-array staged build")
+    remove_files(whole_pre)
+    remove_files(chunk_pre)
+    return launches, claunch
+
+
 def phase_stream_big():
     """The streamed path at its full size: 1 GiB, checksum-only, default
     chunk target, automatic J2 switch; then K1 past position 2**30."""
@@ -601,13 +872,17 @@ def main() -> int:
     smi = phase_environment()
     records = pangenome_records(64)
     C, _, _ = build_stream(records, ParserParams(w=W, p=P))
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    fasta64 = os.path.join(out_dir, "pan64mb.fa")
+    write_fasta(fasta64, records)
     n_b = _bucket(C.shape[0], 1 << 16)
     chars_p = np.full(n_b, ord("A"), dtype=np.uint8)
     chars_p[: C.shape[0]] = C
     codes_main = ntoa_codes(torch.from_numpy(chars_p).cuda())
     row = phase_k1(codes_main)
     del codes_main
-    phase_gather_yardstick()
+    gather_rows = phase_gather()
     small_records, small_cpu, small_fasta = phase_small()
     row["launches"], mono_res, mono_peak = phase_main(records, C)
     del records
@@ -615,11 +890,15 @@ def main() -> int:
     by_path["fused -m 1 MB"] = phase_stream_small(small_records, small_cpu,
                                                   small_fasta)
     by_path["fused -m 64 MB"] = phase_stream_main(C, mono_res, mono_peak)
+    by_path["staged 1 MB"] = phase_staged_small(small_fasta, small_cpu)
+    by_path["staged 64 MB"], by_path[f"staged --chunk-mb {CHUNK_MB}"] = (
+        phase_staged_main(fasta64, C.shape[0], result_files(mono_res)))
+    os.remove(fasta64)
     del C, mono_res
     by_path[f"fused -m {BIG_MB} MB"] = phase_stream_big()
     row["launches_by_path"] = by_path
     print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": [row, *gather_rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,20 @@
 """pfbwt-f CLI of the port, flag-compatible with the reference binary
 (src/pfbwt-f.cpp:102-182):
 
-    python -m pfbwtf_tpu_torch.cli.pfbwt_f --fused [-m] -s -r [--u32] <fasta>
+    python -m pfbwtf_tpu_torch.cli.pfbwt_f [options] <fasta>
 
-Only the fused whole-pipeline build (``--fused``) is ported, with its
-streamed form (``--fused -m``) for inputs past the one-program memory
-ceiling; both run on the CUDA card.  Every other mode exits 1 with a
-message.  ``--u32`` selects the 32-bit build's file widths; the default
-is 64-bit.
+Two builds run on the CUDA card:
+
+- the staged build (the default; ``--device`` is accepted and changes
+  nothing): parse, parse-BWT and final BWT with the reference's
+  checkpoint files, ``--parse-only`` / ``--pfbwt-only`` to run one half,
+  ``--chunk-mb N`` for the bounded-memory parse, ``--print-docs``;
+- the fused whole-pipeline build (``--fused``), with its streamed form
+  (``--fused -m``) for inputs past the one-program memory ceiling.
+
+Every other mode exits 1 with a message: the staged ``-m``, ``--fused``
+with a staged-only flag, ``--mesh``, ``--shards`` and ``--workers``.
+``--u32`` selects the 32-bit build's file widths; the default is 64-bit.
 """
 
 import argparse
@@ -34,7 +41,8 @@ def build_argparser():
     ap.add_argument("-p", "--mod-val", type=int, default=100, dest="p")
     ap.add_argument("-m", "--mmap", action="store_true",
                     help="with --fused: the streamed build, which writes "
-                         ".bwt/.sa chunk by chunk")
+                         ".bwt/.sa chunk by chunk (the staged -m is not "
+                         "ported yet)")
     ap.add_argument("--parse-only", action="store_true")
     ap.add_argument("--pfbwt-only", action="store_true")
     ap.add_argument("--trim-non-acgt", action="store_true")
@@ -46,9 +54,11 @@ def build_argparser():
     ap.add_argument("--u32", action="store_true",
                     help="32-bit integer file widths (reference pfbwt-f)")
     ap.add_argument("--chunk-mb", type=int, default=0,
-                    help="bounded-memory parse (not ported yet)")
+                    help="bounded-memory parse: scan the text in chunks of "
+                         "this many MiB (0 = whole-array)")
     ap.add_argument("--device", action="store_true",
-                    help="staged device pipeline (not ported yet)")
+                    help="every heavy stage on the card (always the case "
+                         "here)")
     ap.add_argument("--fused", action="store_true",
                     help="whole-pipeline device run: chars -> .bwt/.sa with "
                          "no host hops between stages")
@@ -61,23 +71,26 @@ def build_argparser():
     return ap
 
 
-# flags of the reference CLI whose modes this port does not have
+# modes of the reference CLI that this port does not have
 _UNPORTED_FLAGS = (
-    ("mesh", "--mesh"),
-    ("parse_only", "--parse-only"), ("pfbwt_only", "--pfbwt-only"),
-    ("print_docs", "--print-docs"), ("device", "--device"),
-    ("chunk_mb", "--chunk-mb"), ("shards", "--shards"),
-    ("workers", "--workers"),
+    ("mesh", "--mesh"), ("shards", "--shards"), ("workers", "--workers"),
+)
+# flags of the staged build, which --fused does not take
+_STAGED_ONLY_FLAGS = (
+    ("chunk_mb", "--chunk-mb"), ("parse_only", "--parse-only"),
+    ("pfbwt_only", "--pfbwt-only"), ("print_docs", "--print-docs"),
 )
 
 
 def _unported_mode(args):
     """The name of a requested mode this port does not have, or None."""
-    if not args.fused:
-        return "the staged pipeline (run with --fused)"
-    for attr, flag in _UNPORTED_FLAGS:
+    where = "--fused with " if args.fused else ""
+    for attr, flag in _UNPORTED_FLAGS + (
+            _STAGED_ONLY_FLAGS if args.fused else ()):
         if getattr(args, attr):
-            return f"--fused with {flag}"
+            return where + flag
+    if args.mmap and not args.fused:
+        return "the staged build with -m"
     return None
 
 
@@ -97,13 +110,52 @@ def main(argv=None, device="cuda"):
         print("if reading from stdin, need a prefix for output files (-o)",
               file=sys.stderr)
         return 1
+    if args.parse_only and args.pfbwt_only:
+        print("cannot simultaneously do parse_only and pfbwt_only",
+              file=sys.stderr)
+        return 1
     output = args.output or args.fasta
     dtype = formats.U32 if args.u32 else formats.U64
     try:
-        return _run_fused(args, output, dtype, device)
+        if args.fused:
+            return _run_fused(args, output, dtype, device)
+        return _run_staged(args, output, dtype, device)
     except PfbwtError as e:
         print(str(e), file=sys.stderr)
         return 1
+
+
+def _run_staged(args, output: str, dtype, device) -> int:
+    """The staged build (pipeline.py): stages 1 and 2 write the
+    checkpoint files, stage 3 resumes from them."""
+    from ..pipeline import (PfbwtConfig, run_parser, run_parser_chunked,
+                            run_pfbwt)
+
+    n = None
+    if not args.pfbwt_only:
+        print("running parser...", file=sys.stderr)
+        params = ParserParams(
+            w=args.w,
+            p=args.p,
+            get_sai=args.sa or args.rssa,
+            store_docs=args.print_docs,
+            non_acgt_to_a=args.non_acgt_to_a,
+            trim_non_acgt=args.trim_non_acgt,
+            verbose=args.verbose,
+        )
+        if args.chunk_mb > 0:
+            n = run_parser_chunked(args.fasta, output, params,
+                                   args.chunk_mb << 20, dtype, device)
+        else:
+            n = run_parser(args.fasta, output, params, dtype, device)
+    if not args.parse_only:
+        print("generating BWT using pfbwt algorithm...", file=sys.stderr)
+        run_pfbwt(PfbwtConfig(
+            prefix=output, w=args.w, sa=args.sa, rssa=args.rssa,
+            verbose=args.verbose, dtype=dtype, stdout_ext=args.stdout_ext,
+            device=device,
+        ), n)
+    return 0
 
 
 def _run_fused(args, output: str, dtype, device) -> int:

@@ -11,6 +11,23 @@ EndOfWord = 1  # word delimiter inside the .dict file
 EndOfDict = 0  # terminator of the .dict file
 
 
+class EXT:
+    """File-name extensions of the staged build's files (utils.h:17-31)."""
+
+    PARSE = "parse"
+    OCC = "occ"
+    DICT = "dict"
+    BWLST = "bwlast"
+    BWSAI = "bwsai"
+    ILIST = "ilist"
+    SA = "sa"
+    SSA = "ssa"
+    ESA = "esa"
+    BWT = "bwt"
+    N = "n"
+    DOCS = "docs"
+
+
 # Default parsing parameters (pfparser.hpp:37-38).
 DEFAULT_W = 10
 DEFAULT_P = 100
@@ -18,5 +35,10 @@ DEFAULT_P = 100
 # The rolling k-mer is 2-bit packed into a uint64 (pfparser.hpp:371-376).
 MAX_W = 32
 
-# The 32-bit build caps the text at 2^32-1 chars (pfparser.hpp:326-331).
+# Size limits: the 32-bit build caps the text at 2^32-1 chars
+# (pfparser.hpp:326-331) and the parse at 2^31-2 phrases; both builds cap
+# the parse at 2^32-2 phrases, since parse ranks are uint32 in both
+# (pfparser.hpp:393-405, gsacak.h:64).
 MAX_TEXT_32 = 0xFFFFFFFF
+MAX_PHRASES_32 = 0x7FFFFFFE
+MAX_PHRASES_64 = 0xFFFFFFFE

@@ -1,6 +1,8 @@
 """FASTA input with kseq.h record semantics: name = header text up to the
 first whitespace, sequence = all non-whitespace bytes until the next '>'
-header.  Plain or gzip (including bgzip) files, or '-' for stdin."""
+header.  Plain or gzip (including bgzip) files, or '-' for stdin: whole
+(``read_fasta_bytes``) or one record at a time (``iter_fasta_records``,
+for the bounded-memory parse)."""
 
 import gzip
 import sys
@@ -48,3 +50,82 @@ def read_fasta_bytes(fname: str) -> List[Tuple[str, np.ndarray]]:
         seq = buf[seq_lo:seq_hi][~ws[seq_lo:seq_hi]]
         records.append((name, np.ascontiguousarray(seq)))
     return records
+
+
+def iter_fasta_records(fname: str, block: int = 8 << 20):
+    """Streaming record iterator: yields (name, seq_u8) one record at a
+    time, reading the file in ``block``-byte pieces — only the current
+    record is resident (the kseq-equivalent path for inputs larger than
+    RAM).  Same record semantics as read_fasta_bytes."""
+    if fname == "-":
+        fh = sys.stdin.buffer
+        close = False
+    else:
+        fh = open(fname, "rb")
+        close = True
+        magic = fh.read(2)
+        fh.seek(0)
+        if magic == b"\x1f\x8b":
+            fh = gzip.open(fh, "rb")
+    try:
+        name = None
+        parts: List[np.ndarray] = []
+        carry = b""
+        while True:
+            data = fh.read(block)
+            if not data:
+                break
+            data = carry + data
+            # keep a partial trailing line in `carry` so headers and the
+            # whitespace mask never straddle block boundaries
+            cutpos = data.rfind(b"\n")
+            if cutpos < 0:
+                carry = data
+                continue
+            carry = data[cutpos + 1:]
+            data = data[: cutpos + 1]
+            for line in data.split(b"\n"):
+                if not line:
+                    continue
+                if line.startswith(b">"):
+                    if name is not None:
+                        yield name, _cat_seq(parts)
+                    header = line[1:].decode("ascii", "replace").strip()
+                    name = header.split()[0] if header.split() else ""
+                    parts = []
+                elif name is not None:
+                    parts.append(_seq_line(line))
+                else:
+                    raise ValueError(f"{fname}: not FASTA (no '>' header)")
+        if carry:
+            line = carry
+            if line.startswith(b">"):
+                if name is not None:
+                    yield name, _cat_seq(parts)
+                header = line[1:].decode("ascii", "replace").strip()
+                name = header.split()[0] if header.split() else ""
+                parts = []
+            elif name is not None:
+                parts.append(_seq_line(line))
+            else:
+                raise ValueError(f"{fname}: not FASTA (no '>' header)")
+        if name is None:
+            raise ValueError(f"{fname}: not FASTA (no '>' header)")
+        yield name, _cat_seq(parts)
+    finally:
+        if close:
+            fh.close()
+
+
+def _seq_line(line: bytes) -> np.ndarray:
+    """Strip ALL whitespace from a sequence line (read_fasta_bytes
+    semantics, not just edges)."""
+    arr = np.frombuffer(line, dtype=np.uint8)
+    ws = (arr == 32) | (arr == 9) | (arr == 13) | (arr == 10)
+    return arr[~ws] if ws.any() else arr
+
+
+def _cat_seq(parts: List[np.ndarray]) -> np.ndarray:
+    if not parts:
+        return np.zeros(0, dtype=np.uint8)
+    return np.ascontiguousarray(np.concatenate(parts))

@@ -1,0 +1,97 @@
+"""ctypes loader of the host C++ kernel ``native/sais.cpp``, for the host
+dedup's byte-lex substring ranks (``rank_substrings``).
+
+The library is built with g++ at first use into
+``build/pfbwtf_tpu_torch/libsais-<hash>.so`` at the repository root (the
+hash covers the source and the flags), never beside the source.  A
+missing compiler or a failed build makes ``available()`` false, and the
+host dedup (ops/parse._dedup_and_rank) takes its numpy path.
+"""
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from typing import Optional
+
+import numpy as np
+
+from .ops.cuda.build import BUILD_DIR
+from .utils.errors import PfbwtError
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "native", "sais.cpp")
+_FLAGS = ["-std=c++14", "-O3", "-fPIC", "-shared"]
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _build() -> str:
+    try:
+        with open(_SRC, "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode())
+    except OSError as e:
+        raise PfbwtError(f"native source missing: {e}")
+    out = os.path.join(BUILD_DIR, f"libsais-{digest.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(["g++", *_FLAGS, _SRC, "-o", tmp], check=True,
+                       capture_output=True)
+    except (subprocess.CalledProcessError, FileNotFoundError) as e:
+        raise PfbwtError(f"native sais build failed: {e}")
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(_build())
+        lib.rank_substrings.restype = ctypes.c_int
+        lib.rank_substrings.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8),
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+        _lib = lib
+    return _lib
+
+
+def available() -> bool:
+    try:
+        load()
+        return True
+    except PfbwtError:
+        return False
+
+
+def rank_substrings_native(T: np.ndarray, starts: np.ndarray,
+                           lens: np.ndarray):
+    """1-based byte-lex dense ranks of the substrings T[s:s+l] (equal
+    substrings share a rank); returns (ranks, ndistinct)."""
+    lib = load()
+    T = np.ascontiguousarray(np.asarray(T, dtype=np.uint8))
+    starts = np.ascontiguousarray(np.asarray(starts, dtype=np.int64))
+    lens = np.ascontiguousarray(np.asarray(lens, dtype=np.int64))
+    m = starts.shape[0]
+    ranks = np.empty(m, dtype=np.int64)
+    nd = ctypes.c_int64(0)
+    rc = lib.rank_substrings(
+        T.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        T.shape[0],
+        starts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        m,
+        ranks.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.byref(nd),
+    )
+    if rc != 0:
+        raise PfbwtError(f"rank_substrings failed with code {rc}")
+    return ranks, int(nd.value)

@@ -7,8 +7,9 @@ word.  The output order is (suffix-string group, j), so the whole sweep
 of the reference (pfbwt.hpp:97-194) is one sort of n+1 emission keys
 followed by gathers for the BWT char and the SA sample.
 
-Shapes follow the JAX package's bucket grid (nsuf_b, total_b); the true
-sizes arrive as host integers.
+In the fused build the shapes follow the JAX package's bucket grid
+(nsuf_b, total_b) and the true sizes arrive as host integers;
+``assemble_bwt_dev``, the staged build's stage 3, runs at the true sizes.
 """
 
 import warnings
@@ -17,6 +18,8 @@ import numpy as np
 import torch
 
 from ..constants import Dollar, EndOfDict, EndOfWord
+from ..utils.device import resolve_device
+from .bwt import BWTResult, bwt_result
 from .suffix import compact_indices, doubling_with_captures, packed_dict_keys
 
 _I64_MAX = 2**63 - 1
@@ -203,3 +206,55 @@ def assemble_core(dict_flat, occs, bwlast, ilist, bwsai, nsuf_true: int,
     ls_ord = ls_tab[torch.clamp(gid_e, 0, nsuf_b - 1)][order]
     fl_ord = flags[E_suffix][order]
     return _emit_decode(fl_ord, j_ord, ls_ord, bwlast, bwsai, m_ilist)
+
+
+def assemble_bwt_dev(dict_flat: np.ndarray, w: int, occs: np.ndarray,
+                     bwlast: np.ndarray, ilist: np.ndarray, bwsai, n: int,
+                     want_sa: bool = False, want_rssa: bool = False,
+                     sa_dtype=np.uint64, device="cuda") -> BWTResult:
+    """Stage 3 of the staged build on ``device``: the .dict bytes, the
+    occurrence counts and the parse-BWT files to the final BWT, the SA
+    (its first entry n) and the run-length samples.
+
+    The JAX package pads every array to its bucket grid for its compile
+    cache: EndOfDict separators after the dict, zero-count words,
+    unreferenced ilist slots, invalid emission lanes.  None of them
+    reaches the first n + 1 outputs, so the arrays go in at their own
+    lengths and nsuf_b, total_b are the true sizes."""
+    from .fused import capture_levels
+
+    dev = resolve_device(device)
+    dict_flat = np.asarray(dict_flat, dtype=np.uint8)
+    occs = np.asarray(occs, dtype=np.int64)
+    D = dict_flat.shape[0]
+    dwords = occs.shape[0]
+    nsuf = (D - 1 - dwords) - dwords * w
+    total = n + 1
+    if bwsai is None:
+        bwsai = np.zeros(ilist.shape[0], dtype=np.uint64)
+    # the max word length below, and dict_sort_part's suffix lengths,
+    # need a separator-terminated dict
+    if D == 0 or dict_flat[-1] > 1:
+        raise ValueError(
+            "assemble_bwt_dev: dict_flat must end with a separator byte "
+            f"(EndOfWord/EndOfDict), got {int(dict_flat[-1]) if D else 'empty'}"
+        )
+    seps = np.flatnonzero(dict_flat <= 1)
+    max_len = int(np.diff(np.concatenate(([-1], seps))).max()) - 1
+
+    def put(a, dtype):  # a writable copy: file arrays are read-only
+        return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
+
+    bwtc, sa_vals = assemble_core(
+        put(dict_flat, np.uint8), put(occs, np.int64),
+        put(bwlast, np.uint8), put(ilist, np.int64),
+        put(np.asarray(bwsai, dtype=np.uint64).view(np.int64), np.int64),
+        nsuf, total, w, nsuf, total,
+        n_levels=capture_levels(max_len, w),
+    )
+    sa_np = None
+    if want_sa or want_rssa:
+        sa_vals[0] = n
+        sa_np = sa_vals.cpu().numpy().view(np.uint64)
+    return bwt_result(bwtc.cpu().numpy(), sa_np, want_sa, want_rssa,
+                      sa_dtype)

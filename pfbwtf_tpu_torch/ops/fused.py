@@ -27,9 +27,9 @@ import torch
 from ..constants import Dollar, EndOfDict, EndOfWord
 from ..utils.device import resolve_device
 from ..utils.errors import die
-from ..utils.tables import NTOA_TABLE, ntoa_codes
+from ..utils.tables import codes_or_die, ntoa_codes
 from . import suffix
-from .bwt import BWTResult
+from .bwt import bwt_result
 from .bwt_dev import _exclusive_cumsum, _set_drop, assemble_core, dict_sort_part
 from .hash import cut_mask
 from .parse_bwt import parse_bwt_core
@@ -461,12 +461,7 @@ def pfbwt_fused_device(C: np.ndarray, w: int, p: int, want_sa: bool = False,
     run-length sampling)."""
     dev = resolve_device(device)
     t_start = time.perf_counter()
-    codes_chk = NTOA_TABLE[C]
-    if codes_chk.size and codes_chk.max() > 3:
-        bad = C[codes_chk > 3][0]
-        die(f"invalid character {bad}/{chr(bad)} in input "
-            "(use --non-acgt-to-a)")
-    del codes_chk
+    codes_or_die(C)
 
     C_len = int(C.shape[0])
     n = C_len  # text length incl. per-record pads (pfparser.hpp:529-532)
@@ -502,27 +497,13 @@ def pfbwt_fused_device(C: np.ndarray, w: int, p: int, want_sa: bool = False,
         "rounds": dict(suffix.rounds),
     }
     sa_d[0] = n
-    bwtc = bwt_d[:total].cpu().numpy()
-    run_start = np.empty(total, dtype=bool)
-    run_start[0] = True
-    np.not_equal(bwtc[1:], bwtc[:-1], out=run_start[1:])
-    nruns = int(np.count_nonzero(run_start))
-    info["r"] = nruns
-    sa_out = ssa = esa = None
-    if want_sa or want_rssa:
-        sa_np = sa_d[:total].cpu().numpy().view(np.uint64)
-        if want_rssa:
-            rs = np.flatnonzero(run_start)
-            re = np.concatenate((rs[1:] - 1, [total - 1]))
-            ssa = np.empty(2 * rs.shape[0], dtype=sa_dtype)
-            ssa[0::2] = rs.astype(sa_dtype)
-            ssa[1::2] = sa_np[rs].astype(sa_dtype)
-            esa = np.empty(2 * re.shape[0], dtype=sa_dtype)
-            esa[0::2] = re.astype(sa_dtype)
-            esa[1::2] = sa_np[re].astype(sa_dtype)
-        sa_out = sa_np if want_sa else None
+    sa_np = (sa_d[:total].cpu().numpy().view(np.uint64)
+             if want_sa or want_rssa else None)
+    res = bwt_result(bwt_d[:total].cpu().numpy(), sa_np, want_sa, want_rssa,
+                     sa_dtype)
+    info["r"] = res.nruns
     info["fetch_s"] = time.perf_counter() - t2
-    return BWTResult(bwt=bwtc, sa=sa_out, nruns=nruns, ssa=ssa, esa=esa), info
+    return res, info
 
 
 def pfbwt_fused_records(records, params, device="cuda", **kw):

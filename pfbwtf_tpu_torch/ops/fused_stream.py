@@ -35,7 +35,7 @@ import torch
 
 from ..utils.device import resolve_device
 from ..utils.errors import die
-from ..utils.tables import NTOA_TABLE
+from ..utils.tables import codes_or_die
 from ..utils.timer import task_timer
 from . import fused
 from .bwt_dev import _emit_decode, emission_state
@@ -222,12 +222,7 @@ def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
     if fetch is None:
         fetch = bwt_fp is not None or sa_fp is not None or want_rssa
     info = {} if info is None else info
-    codes_chk = NTOA_TABLE[C]
-    if codes_chk.size and codes_chk.max() > 3:
-        bad = C[codes_chk > 3][0]
-        die(f"invalid character {bad}/{chr(bad)} in input "
-            "(use --non-acgt-to-a)")
-    del codes_chk
+    codes_or_die(C)
     C_len = int(C.shape[0])
     n = C_len
     n_b = fused._bucket(max(C_len, 1), 1 << 16)

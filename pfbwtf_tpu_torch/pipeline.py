@@ -1,0 +1,173 @@
+"""Staged build: parse -> parse-BWT -> final BWT (pfbwtf_tpu/pipeline.py).
+
+The reference's checkpoint protocol (SURVEY.md §5.4): ``run_parser``
+writes .dict/.occ/.parse/.n[/.docs] and .bwlast/.ilist[/.bwsai]
+(pfbwt-f.cpp:209-245), and ``run_pfbwt`` resumes from exactly those files
+(pfbwt-f.cpp:275-349), so the two stages can run in different processes
+(--parse-only / --pfbwt-only), and either may be pfbwtf_tpu's.  Every
+heavy stage runs on ``device``.
+"""
+
+import sys
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+from . import engine
+from .constants import EXT
+from .io import formats
+from .ops.parse import ParseResult, ParserParams
+from .utils.limits import check_phrase_count, check_text_width
+from .utils.timer import task_timer
+
+U32, U64 = formats.U32, formats.U64
+
+
+def save_parser(res: ParseResult, prefix: str, dtype=U64):
+    """save_parser (pfbwt_io.hpp:234-249): .dict streamed in slabs from
+    the flat dictionary view, .occ, .parse, .docs, .n.  Guards the output
+    width before narrowing (pfparser.hpp:326-331, 393-405)."""
+    check_text_width(res.n, dtype)
+    check_phrase_count(res.parse_ranks.shape[0], dtype)
+    with open(prefix + "." + EXT.DICT, "wb") as f:
+        for slab in res.iter_dict_chunks():
+            f.write(slab.tobytes())
+    formats.write_occ(prefix + "." + EXT.OCC, res.occs, dtype)
+    formats.write_parse_ranks(prefix + "." + EXT.PARSE, res.parse_ranks)
+    if res.params.store_docs:
+        formats.write_docs(prefix + "." + EXT.DOCS, res.doc_names,
+                           res.doc_starts)
+    formats.write_n(prefix + "." + EXT.N, res.n)
+
+
+def save_parse_bwt(res: ParseResult, prefix: str, dtype=U64, sa: bool = True,
+                   device="cuda", info: dict = None):
+    """Stage 2 and its files (pfbwt_io.hpp:287-297); ``info`` receives
+    parse_bwt_s and the seconds of the writes (write_s, added to)."""
+    info = {} if info is None else info
+    t0 = time.perf_counter()
+    pb = engine.parse_bwt(res, get_sai=sa, device=device)
+    t1 = time.perf_counter()
+    formats.write_u8(prefix + "." + EXT.BWLST, pb.bwlast)
+    formats.write_uint(prefix + "." + EXT.ILIST, pb.ilist, dtype)
+    if sa:
+        formats.write_uint(prefix + "." + EXT.BWSAI, pb.bwsai, dtype)
+    info["parse_bwt_s"] = t1 - t0
+    info["write_s"] = info.get("write_s", 0.0) + time.perf_counter() - t1
+    return pb
+
+
+@dataclass
+class PfbwtConfig:
+    prefix: str
+    w: int = 10
+    sa: bool = False
+    rssa: bool = False
+    verbose: bool = False
+    dtype: np.dtype = U64
+    stdout_ext: str = ""  # '-c <ext>': route one output to stdout
+    device: str = "cuda"
+
+
+def run_parser(in_fname: str, output: str, params: ParserParams, dtype=U64,
+               device="cuda", info: dict = None) -> int:
+    """Stages 1 and 2: parse, write the checkpoint files; returns n.
+    ``info`` receives engine.parse_fasta's keys, parse_bwt_s and write_s."""
+    info = {} if info is None else info
+    with task_timer("parsing input"):
+        res = engine.parse_fasta(in_fname, params, device, info)
+    with task_timer("finalizing parse, writing dict, occs, and ranks"):
+        t0 = time.perf_counter()
+        save_parser(res, output, dtype)
+        info["write_s"] = time.perf_counter() - t0
+    with task_timer("ranking and bwt-ing parse and processing last-chars"):
+        save_parse_bwt(res, output, dtype, sa=params.get_sai, device=device,
+                       info=info)
+    if params.trim_non_acgt:
+        # the reference writes the (always empty) non-ACGT run table when
+        # trimming is asked for (pfbwt-f.cpp:238-240; the trim path is
+        # disabled upstream, pfparser.hpp:338-359)
+        open(output + ".ntab", "wb").close()
+    return res.n
+
+
+def run_parser_chunked(in_fname: str, output: str, params: ParserParams,
+                       chunk: int, dtype=U64, device="cuda",
+                       info: dict = None) -> int:
+    """Stages 1 and 2 with the bounded-memory parse (``--chunk-mb``): the
+    cut scan in ``chunk``-code pieces on ``device``, the dedup on the
+    host, then the files of run_parser; returns n.  ``info`` receives
+    ops/chunked.parse_fasta_chunked's keys, parse_bwt_s and write_s."""
+    from .ops.chunked import parse_fasta_chunked
+
+    info = {} if info is None else info
+    res = parse_fasta_chunked(in_fname, params, chunk=chunk, device=device,
+                              info=info)
+    t0 = time.perf_counter()
+    save_parser(res, output, dtype)
+    info["write_s"] = time.perf_counter() - t0
+    save_parse_bwt(res, output, dtype, sa=params.get_sai, device=device,
+                   info=info)
+    return res.n
+
+
+def _out_handle(cfg: PfbwtConfig, ext: str):
+    if cfg.stdout_ext == ext:
+        return sys.stdout.buffer
+    return open(cfg.prefix + "." + ext, "wb")
+
+
+def run_pfbwt(cfg: PfbwtConfig, n: Optional[int] = None, info: dict = None):
+    """Stage 3: load the checkpoint files, assemble the final BWT on
+    cfg.device, write .bwt[/.sa][/.ssa/.esa].  ``info`` receives
+    assembly_s and the seconds of the reads and writes (write_s, added
+    to)."""
+    info = {} if info is None else info
+    prefix = cfg.prefix
+    t0 = time.perf_counter()
+    dict_flat = formats.read_dict_flat(prefix + "." + EXT.DICT)
+    occs = formats.read_occ(prefix + "." + EXT.OCC, cfg.dtype)
+    bwlast = formats.read_u8(prefix + "." + EXT.BWLST)
+    ilist = formats.read_uint(prefix + "." + EXT.ILIST, cfg.dtype)
+    any_sa = cfg.sa or cfg.rssa
+    bwsai = (formats.read_uint(prefix + "." + EXT.BWSAI, cfg.dtype)
+             if any_sa else None)
+    if n is None:
+        n = formats.read_n(prefix + "." + EXT.N)
+    check_text_width(n, cfg.dtype)
+    t1 = time.perf_counter()
+    with task_timer(
+        "generating final BWT w/ full and/or run-length SA"
+        if any_sa
+        else "generating final BWT w/o SA"
+    ):
+        res = engine.assemble_bwt(
+            dict_flat, cfg.w, occs.astype(np.int64), bwlast,
+            ilist.astype(np.int64), bwsai, n,
+            want_sa=cfg.sa, want_rssa=cfg.rssa, sa_dtype=cfg.dtype,
+            device=cfg.device,
+        )
+    t2 = time.perf_counter()
+    bwt_fp = _out_handle(cfg, EXT.BWT)
+    bwt_fp.write(res.bwt.tobytes())
+    if bwt_fp is not sys.stdout.buffer:
+        bwt_fp.close()
+    if cfg.sa:
+        sa_fp = _out_handle(cfg, EXT.SA)
+        sa_fp.write(res.sa.astype(cfg.dtype).tobytes())
+        if sa_fp is not sys.stdout.buffer:
+            sa_fp.close()
+    if cfg.rssa:
+        with open(prefix + "." + EXT.SSA, "wb") as f:
+            f.write(res.ssa.astype(cfg.dtype).tobytes())
+        with open(prefix + "." + EXT.ESA, "wb") as f:
+            f.write(res.esa.astype(cfg.dtype).tobytes())
+    info["assembly_s"] = t2 - t1
+    info["write_s"] = (info.get("write_s", 0.0) + (t1 - t0)
+                       + time.perf_counter() - t2)
+    print(f"n: {n}", file=sys.stderr)
+    print(f"r: {res.nruns}", file=sys.stderr)
+    print(f"n/r: {n / res.nruns:.3f}", file=sys.stderr)
+    return res

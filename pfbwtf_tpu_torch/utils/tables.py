@@ -10,6 +10,8 @@
 import numpy as np
 import torch
 
+from .errors import die
+
 
 def _build_ntoa() -> np.ndarray:
     t = np.full(256, 5, dtype=np.uint8)
@@ -36,6 +38,17 @@ NT4_TABLE = _build_nt4()
 # Uppercasing table (std::toupper over the byte range, pfparser.hpp:337).
 UPPER_TABLE = np.arange(256, dtype=np.uint8)
 UPPER_TABLE[ord("a"): ord("z") + 1] -= 32
+
+
+def codes_or_die(chars: np.ndarray) -> np.ndarray:
+    """NTOA_TABLE[chars]; raises PfbwtError at the first byte the hasher
+    cannot take (pfparser.hpp:345-351)."""
+    codes = NTOA_TABLE[chars]
+    if codes.max(initial=0) > 3:
+        bad = chars[codes > 3][0]
+        die(f"invalid character {bad}/{chr(bad)} in input "
+            "(use --non-acgt-to-a)")
+    return codes
 
 
 def ntoa_codes(chars_u8: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Kernel K1 and the fused build on a CUDA card, against the plain
-PyTorch version and the CPU run.  Marked ``cuda``: each test skips when
-no card is present.  On the card: ``python -m pytest -m cuda tests/``."""
+"""Kernels K1-K4, and the fused and staged builds, on a CUDA card against
+the plain PyTorch versions and the CPU run.  Marked ``cuda``: each test
+skips when no card is present.  On the card:
+``python -m pytest --noconftest -q tests/test_torch_cuda.py``."""
 
 import io
 
@@ -8,11 +9,15 @@ import numpy as np
 import pytest
 import torch
 
+from pfbwtf_tpu_torch.cli.pfbwt_f import main as cli_main
+from pfbwtf_tpu_torch.ops import gather
+from pfbwtf_tpu_torch.ops.cuda import gather as gather_kernels
 from pfbwtf_tpu_torch.ops.cuda import hash_scan as k1
 from pfbwtf_tpu_torch.ops.fused import pfbwt_fused_records
 from pfbwtf_tpu_torch.ops.fused_stream import pfbwt_fused_stream
 from pfbwtf_tpu_torch.ops.hash import hash_scan
 from pfbwtf_tpu_torch.ops.parse import ParserParams, build_stream
+from pfbwtf_tpu_torch.pipeline import PfbwtConfig, run_parser_chunked, run_pfbwt
 from pfbwtf_tpu_torch.testing import plant_cuts
 
 pytestmark = pytest.mark.cuda
@@ -93,3 +98,62 @@ def test_fused_stream_card_equals_cpu(card):
     (gb, gs, go), (cb, cs, co) = outs
     assert gb == cb and gs == cs and go[:3] == co[:3]
     assert np.array_equal(go[3], co[3]) and np.array_equal(go[4], co[4])
+
+
+@pytest.mark.parametrize("name", ["take", "take_along", "take_rows"])
+def test_gather_kernels_equal_plain_on_card(card, name):
+    """K2-K4 bit for bit against their plain versions: tables of 1, 1000
+    and 2^20 entries, ragged lengths, views off a 16-byte boundary, and
+    for K3 and K4 indices in [-2T, 2T) (wrap, fill and clip)."""
+    rng = np.random.default_rng(9)
+    plain = getattr(gather, name + "_plain")
+    kernel = getattr(gather_kernels, name)
+    for t in (1, 1000, 1 << 20):
+        table = torch.from_numpy(rng.integers(
+            -(1 << 31), (1 << 31) - 1, size=t, dtype=np.int32)).to(card)
+        lo, hi = (0, t) if name == "take" else (-2 * t, 2 * t)
+        for n in (1, 3, 4, 5, 8191, 100_003):
+            for off in (0, 1, 2, 3):
+                buf = torch.from_numpy(rng.integers(
+                    lo, hi, size=n + off, dtype=np.int32)).to(card)
+                idx = buf[off:]
+                before = gather_kernels.launches[name]
+                got = kernel(table, idx)
+                torch.cuda.synchronize()
+                assert gather_kernels.launches[name] == before + 1
+                assert torch.equal(got, plain(table, idx)), (t, n, off)
+
+
+ELEVEN = ("dict", "occ", "parse", "n", "bwlast", "ilist", "bwsai", "bwt",
+          "sa", "ssa", "esa")
+
+
+def test_staged_card_equals_cpu(card, tmp_path):
+    """The staged CLI (-s -r) and the chunked parse on the card write the
+    same files as on the CPU, and launch K1 (once per chunk)."""
+    rng = np.random.default_rng(7)
+    unit = rng.choice(ACGT, size=20000)
+    fa = tmp_path / "in.fa"
+    with open(fa, "wb") as f:
+        for i in range(3):
+            hap = unit.copy()
+            pos = rng.integers(0, hap.size, size=40)
+            hap[pos] = ACGT[rng.integers(0, 4, size=40)]
+            f.write(b">h%d\n" % i + hap.tobytes() + b"\n")
+    before = k1.launches
+    assert cli_main([str(fa), "-o", str(tmp_path / "gpu"), "-s", "-r"]) == 0
+    assert k1.launches == before + 1
+    assert cli_main([str(fa), "-o", str(tmp_path / "cpu"), "-s", "-r"],
+                    device="cpu") == 0
+    params = ParserParams(get_sai=True)
+    before = k1.launches
+    info = {}
+    n = run_parser_chunked(str(fa), str(tmp_path / "chk"), params, 1 << 12,
+                           device="cuda", info=info)
+    assert k1.launches == before + info["n_chunks"] == before + -(-n // 4096)
+    run_pfbwt(PfbwtConfig(prefix=str(tmp_path / "chk"), sa=True, rssa=True,
+                          device="cuda"), n)
+    for ext in ELEVEN:
+        want = (tmp_path / f"cpu.{ext}").read_bytes()
+        assert (tmp_path / f"gpu.{ext}").read_bytes() == want, ext
+        assert (tmp_path / f"chk.{ext}").read_bytes() == want, ext

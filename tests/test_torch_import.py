@@ -1,6 +1,7 @@
-"""The port's import boundary: pfbwtf_tpu_torch and chip_smoke.py import
-neither jax nor pfbwtf_tpu, and the entry points run on the card unless
-the caller asks for the CPU."""
+"""The port's import boundary: pfbwtf_tpu_torch (every module, those of
+the staged build and the gather probe included) and chip_smoke.py import
+neither jax, nor pfbwtf_tpu, nor the TPU probes under benchmarks/, and
+the entry points run on the card unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -32,8 +33,8 @@ def test_import_loads_no_jax_in_a_fresh_interpreter():
         " 'pfbwtf_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'pfbwtf_tpu' or m.startswith('pfbwtf_tpu.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'pfbwtf_tpu', 'benchmarks')]\n"
         "print(len(sys.modules), bad)\n"
         "assert not bad, bad\n"
     )
@@ -58,7 +59,22 @@ def test_no_jax_or_reference_package_import(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "pfbwtf_tpu"), (path, name)
+            assert top not in ("jax", "jaxlib", "pfbwtf_tpu", "benchmarks"), (
+                path, name)
+
+
+NEW_MODULES = (
+    "engine", "pipeline", "native", "ops.chunked", "ops.gather",
+    "ops.cuda.gather", "parallel.dict_union", "probes.gather_probe",
+)
+
+
+@pytest.mark.parametrize("name", NEW_MODULES)
+def test_staged_and_probe_modules_are_checked(name):
+    """The AST check above covers the staged build's and the probe's
+    modules (it walks the package)."""
+    path = os.path.join(PKG, *name.split(".")) + ".py"
+    assert path in list(_port_sources())
 
 
 def test_default_device_raises_without_a_card():
@@ -86,6 +102,18 @@ def test_cli_default_device_raises_without_a_card(tmp_path):
         main([str(fa), "-o", str(tmp_path / "o"), "--fused", "-s"])
 
 
+@pytest.mark.parametrize("extra", [[], ["--chunk-mb", "1"]])
+def test_staged_cli_default_device_raises_without_a_card(tmp_path, extra):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from pfbwtf_tpu_torch.cli.pfbwt_f import main
+
+    fa = tmp_path / "x.fa"
+    fa.write_bytes(b">x\n" + b"ACGTTGCAAC" * 100 + b"\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([str(fa), "-o", str(tmp_path / "o"), "-s", *extra])
+
+
 def test_kernel_build_fails_loudly_without_nvcc(monkeypatch, tmp_path):
     from pfbwtf_tpu_torch.ops.cuda import build
 
@@ -93,7 +121,7 @@ def test_kernel_build_fails_loudly_without_nvcc(monkeypatch, tmp_path):
         pytest.skip("a CUDA toolkit is installed")
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
-    assert build.sources() == ["hash_scan"]
+    assert build.sources() == ["gather", "hash_scan"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.library_path("hash_scan")
 
