@@ -17,13 +17,18 @@ line:
    of both (K1 one launch at a time, and in batches of 20 back to back),
    K1's bound and the share of it reached by each time.
 3. Kernels K2-K4 (the TPU gather probe's table gathers) against their
-   plain versions on the card, bit for bit: tables of 1, 1000 and 2^20
-   entries, index lengths from 1 to 1,000,003, a view one element past an
-   allocation, out-of-range lanes for K3 (wrap, fill) and K4 (clip), and
-   the probe's shape (2^20 table, 2^24 indices); there CUDA-event median
-   times one launch at a time and in batches of 20, torch.take's in the
-   same call, and the share of the bytes bound reached; then
-   probes/gather_probe.main with the launch counts set to 0 before it.
+   plain versions on the card, bit for bit, in both tiers (shared memory
+   and L2): tables of 1, 1000 and 2^20 entries and the two around the
+   tier boundary, each also as a view off 16 bytes, index lengths from 1
+   to 1,000,003 around the 16-lane unroll, an index view one element past
+   an allocation, out-of-range lanes for K3 (wrap, fill) and K4 (clip),
+   and the probe's shape (2^20 table, 2^24 indices); there CUDA-event
+   median times one launch at a time and in batches of 20, torch.take's
+   in the same call, and the share of the bytes bound reached.  Then K2
+   over a sweep of table sizes (2^10 to 2^24 entries, 2^24 indices) with
+   each size's tier, and K2-K4 at J3's shape (2^21 entries, 75,497,472
+   indices); then probes/gather_probe.main with the launch counts set to
+   0 before it.
 4. The whole fused build of a 1 MB pan-genome on the card against the
    same build on the CPU, through pfbwt_fused_records and through the
    CLI (``--fused -s -r``): .bwt/.sa/.ssa/.esa bytes must be identical.
@@ -304,18 +309,68 @@ GATHER_ROWS = (  # (wrapper, TPU kernel it replaces)
     ("take_along", "benchmarks/gather_probe.py:108"),
     ("take_rows", "benchmarks/gather_probe.py:145"),
 )
-GATHER_TABLES = (1, 1000, GATHER_TABLE)
-GATHER_LENGTHS = (1, 3, 4, 5, 8191, 1_000_003)
+GATHER_LENGTHS = (1, 3, 4, 5, 15, 16, 17, 63, 65, 8191, 1_000_003)
+# the table-size sweep at 2^24 indices, in log2 entries; the last table
+# of the shared-memory tier and the first past it join it on the card
+GATHER_SWEEP_LOG2 = (10, 14, 15, 18, 20, 22, 24)
+# J3's shape in the TPU probe's docstring (benchmarks/gather_probe.py:4-9):
+# an m-scale table of 8 MiB and the 64 MB build's padded length n_b
+J3_TABLE, J3_IDX = 1 << 21, 75_497_472
+
+
+def _gather_bound_ms(t: int, n: int) -> float:
+    """The bytes bound: n indices read and n outputs written (4 B each),
+    the table read once, at 3.35 TB/s."""
+    return (8 * n + 4 * t) / HBM_BYTES_PER_S * 1e3
+
+
+def _gather_times(kern, table, idx, idx64) -> dict:
+    """One launch at a time and batched, the kernel's and torch.take's,
+    the tier that ran, and the bytes bound with the share of it each time
+    reaches."""
+    import torch
+
+    from pfbwtf_tpu_torch.ops.cuda import gather as kernels
+
+    before = dict(kernels.tier_launches)
+    kern(table, idx)
+    tier, = [k for k, v in kernels.tier_launches.items() if v > before[k]]
+    t, n = table.shape[0], idx.shape[0]
+    bound = _gather_bound_ms(t, n)
+    r = {"T": t, "n": n, "tier": tier,
+         "ms": _median_ms(lambda: kern(table, idx), 50),
+         "ms_batched": _median_ms(lambda: kern(table, idx), 20, per=20),
+         "take_ms": _median_ms(lambda: torch.take(table, idx64), 50),
+         "take_ms_batched": _median_ms(lambda: torch.take(table, idx64), 20,
+                                       per=20),
+         "bound_ms": bound}
+    r["bound_share"] = bound / r["ms"]
+    r["bound_share_batched"] = bound / r["ms_batched"]
+    return r
+
+
+def _gather_line(label: str, r: dict) -> str:
+    return (f"{label} T={r['T']} n={r['n']} ({r['tier']} tier): "
+            f"{r['ms']:.4f} ms one launch at a time, {r['ms_batched']:.4f} "
+            f"ms batched; torch.take {r['take_ms']:.4f} / "
+            f"{r['take_ms_batched']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+            f"(bytes), {r['bound_share']:.3f} of the time one at a time, "
+            f"{r['bound_share_batched']:.3f} batched")
 
 
 def phase_gather():
-    """K2-K4 against their plain versions on the card, bit for bit: the
-    TPU probe's shape, tables of 1, 1000 and 2^20 entries, ragged index
-    lengths, an index view one element past an allocation (off a 16-byte
-    boundary) and, for K3 and K4, out-of-range lanes; then times at the
-    probe's shape beside torch.take and the bound, and the probe itself
-    (probes/gather_probe.main) with the launch counts set to 0 just
-    before and read just after.  Returns the kernels' rows."""
+    """K2-K4 against their plain versions on the card, bit for bit, in
+    both tiers: tables of 1 and 1000 entries, the last of the
+    shared-memory tier and the first past it, and 2^20, each also as a
+    view off a 16-byte boundary; ragged index lengths around the 16-lane
+    unroll, index views one element past an allocation and, for K3 and
+    K4, out-of-range lanes.  Then the probe's shape (2^20 table, 2^24
+    indices): bit-equal, times one at a time and batched beside
+    torch.take's, the plain version's and the bound; the table-size sweep
+    at 2^24 indices (K2 and torch.take, each size's tier) and J3's shape
+    (T = 2^21, 75,497,472 indices, K2-K4 bit-equal and timed); last the
+    probe itself (probes/gather_probe.main) with the launch counts set to
+    0 just before and read just after.  Returns the kernels' rows."""
     import torch
 
     from pfbwtf_tpu_torch.ops import gather
@@ -325,32 +380,44 @@ def phase_gather():
     def _int_err(got, want) -> int:
         return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
+    limit = kernels.smem_limit(torch.cuda.current_device())
+    last_smem = limit // 4
+    tables = (1, 1000, last_smem, last_smem + 1, GATHER_TABLE)
+    print(f"K2-K4 shared-memory tier: tables up to {limit} B "
+          f"({last_smem} entries) on this card")
     rng = np.random.default_rng(11)
     max_err = {name: 0 for name, _ in GATHER_ROWS}
     runs = 0
-    for t in GATHER_TABLES:
-        table = torch.from_numpy(rng.integers(
-            -(1 << 31), (1 << 31) - 1, size=t, dtype=np.int32)).cuda()
-        for n in GATHER_LENGTHS:
-            for off in (0, 1):
-                for name, _ in GATHER_ROWS:
-                    # K3 and K4 take every index: [-2T, 2T) has lanes that
-                    # wrap, fill (K3) and clip (K4)
-                    lo, hi = (0, t) if name == "take" else (-2 * t, 2 * t)
-                    buf = torch.from_numpy(rng.integers(
-                        lo, hi, size=n + off, dtype=np.int32)).cuda()
-                    idx = buf[off:]
-                    got = getattr(kernels, name)(table, idx)
-                    want = getattr(gather, name + "_plain")(table, idx)
-                    torch.cuda.synchronize()
-                    err = _int_err(got, want)
-                    max_err[name] = max(max_err[name], err)
-                    check(err == 0, f"{name} differs from plain at T={t} "
-                          f"n={n} offset={off}")
-                    runs += 1
-    print(f"K2-K4 grid: tables {GATHER_TABLES} x lengths {GATHER_LENGTHS} x "
-          f"offsets (0, 1): {runs} runs bit-equal to the plain versions, "
-          "out-of-range lanes included for K3 and K4")
+    tiers0 = dict(kernels.tier_launches)
+    for t in tables:
+        for toff in (0, 1, 2, 3):
+            table = torch.from_numpy(rng.integers(
+                -(1 << 31), (1 << 31) - 1, size=t + toff,
+                dtype=np.int32)).cuda()[toff:]
+            for n in GATHER_LENGTHS:
+                for off in (0, 1):
+                    for name, _ in GATHER_ROWS:
+                        # K3 and K4 take every index: [-2T, 2T) has lanes
+                        # that wrap, fill (K3) and clip (K4)
+                        lo, hi = (0, t) if name == "take" else (-2 * t, 2 * t)
+                        buf = torch.from_numpy(rng.integers(
+                            lo, hi, size=n + off, dtype=np.int32)).cuda()
+                        idx = buf[off:]
+                        got = getattr(kernels, name)(table, idx)
+                        want = getattr(gather, name + "_plain")(table, idx)
+                        torch.cuda.synchronize()
+                        err = _int_err(got, want)
+                        max_err[name] = max(max_err[name], err)
+                        check(err == 0, f"{name} differs from plain at T={t} "
+                              f"table offset {toff} n={n} offset={off}")
+                        runs += 1
+    ran = {k: v - tiers0[k] for k, v in kernels.tier_launches.items()}
+    check(ran["smem"] > 0 and ran["l2"] > 0,
+          f"the grid did not run both tiers: {ran}")
+    print(f"K2-K4 grid: tables {tables} x table offsets 0-3 x lengths "
+          f"{GATHER_LENGTHS} x offsets (0, 1): {runs} runs bit-equal to the "
+          f"plain versions, out-of-range lanes included for K3 and K4; "
+          f"launches by tier {ran}")
 
     rng = np.random.default_rng(0)  # the probe's inputs
     table = torch.from_numpy(rng.integers(
@@ -361,8 +428,6 @@ def phase_gather():
     wild = torch.from_numpy(rng.integers(
         -2 * GATHER_TABLE, 2 * GATHER_TABLE, size=GATHER_IDX,
         dtype=np.int32)).cuda()
-    nbytes = 4 * GATHER_IDX * 2 + 4 * GATHER_TABLE
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     rows = []
     for name, replaces in GATHER_ROWS:
         kern = getattr(kernels, name)
@@ -377,30 +442,61 @@ def phase_gather():
             check(err == 0, f"{name} differs from plain at the probe's "
                   f"shape ({what} indices)")
         del got, want
-        ms = _median_ms(lambda: kern(table, idx), 50)
-        ms_batched = _median_ms(lambda: kern(table, idx), 20, per=20)
+        r = _gather_times(kern, table, idx, idx64)
         plain_ms = _median_ms(lambda: plain(table, idx), 10)
-        take_ms = _median_ms(lambda: torch.take(table, idx64), 50)
-        take_batched = _median_ms(lambda: torch.take(table, idx64), 20,
-                                  per=20)
-        print(f"{name} at the probe's shape (T={GATHER_TABLE}, "
-              f"{GATHER_IDX} indices): bit-equal; {ms:.4f} ms one launch at "
-              f"a time, {ms_batched:.4f} ms batched, plain {plain_ms:.4f} "
-              f"ms, torch.take {take_ms:.4f} ms one at a time and "
-              f"{take_batched:.4f} ms batched; bound {bound_ms:.4f} ms "
-              f"(bytes; {nbytes} B at 3.35 TB/s), {bound_ms / ms:.3f} of the "
-              f"time one at a time, {bound_ms / ms_batched:.3f} batched")
+        print(_gather_line(f"{name} at the probe's shape, bit-equal;", r)
+              + f"; plain {plain_ms:.4f} ms")
         rows.append({
             "name": name, "route": "cuda",
             "source": "pfbwtf_tpu_torch/csrc/gather.cu", "replaces": replaces,
-            "launches": None, "max_abs_err": None, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": take_ms, "bound_share": bound_ms / ms,
-            "ms_batched": ms_batched,
-            "bound_share_batched": bound_ms / ms_batched,
-            "library_ms_batched": take_batched,
+            "launches": None, "max_abs_err": None, "ms": r["ms"],
+            "plain_ms": plain_ms, "bound_ms": r["bound_ms"],
+            "bound_by": "bytes", "library_ms": r["take_ms"],
+            "bound_share": r["bound_share"], "ms_batched": r["ms_batched"],
+            "bound_share_batched": r["bound_share_batched"],
+            "library_ms_batched": r["take_ms_batched"], "tier": r["tier"],
         })
     del table, idx, idx64, wild
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    sweep = []
+    for t in sorted({1 << e for e in GATHER_SWEEP_LOG2}
+                    | {last_smem, last_smem + 1}):
+        table = torch.randint(0, 1 << 30, (t,), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        idx = torch.randint(0, t, (GATHER_IDX,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        idx64 = idx.to(torch.int64)
+        check(torch.equal(kernels.take(table, idx), torch.take(table, idx64)),
+              f"take differs from torch.take at T={t}")
+        r = _gather_times(kernels.take, table, idx, idx64)
+        check(r["tier"] == ("smem" if t <= last_smem else "l2"),
+              f"T={t} ran the {r['tier']} tier")
+        print(_gather_line("take sweep, bit-equal to torch.take;", r))
+        sweep.append(r)
+        del table, idx, idx64
+    rows[0]["sweep"] = sweep
+
+    table = torch.randint(0, 1 << 30, (J3_TABLE,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    idx = torch.randint(0, J3_TABLE, (J3_IDX,), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    wild = torch.randint(-2 * J3_TABLE, 2 * J3_TABLE, (J3_IDX,),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    idx64 = idx.to(torch.int64)
+    for row in rows:
+        name = row["name"]
+        kern = getattr(kernels, name)
+        plain = getattr(gather, name + "_plain")
+        for ix in ((idx,) if name == "take" else (idx, wild)):
+            err = _int_err(kern(table, ix), plain(table, ix))
+            max_err[name] = max(max_err[name], err)
+            check(err == 0, f"{name} differs from plain at J3's shape")
+        row["j3"] = r = _gather_times(kern, table, idx, idx64)
+        print(_gather_line(f"{name} at J3's shape, bit-equal;", r))
+    del table, idx, idx64, wild
+
     for row in rows:
         row["max_abs_err"] = max_err[row["name"]]
         kernels.launches[row["name"]] = 0

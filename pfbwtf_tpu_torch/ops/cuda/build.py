@@ -5,6 +5,8 @@ library with a plain C interface, ``build/pfbwtf_tpu_torch/<name>-<hash>.so``
 at the repository root, and is loaded with ctypes.  The hash covers the
 source's content and the flags, so an edited source is rebuilt and an
 unchanged one is reused.  A missing ``nvcc`` or a failed build raises.
+``functions`` hands the wrappers their C functions, resolved once per
+library load, and ``current_stream`` a card's current stream.
 """
 
 import ctypes
@@ -14,6 +16,8 @@ import shutil
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -70,6 +74,35 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _libs:
         _libs[name] = ctypes.CDLL(library_path(name))
     return _libs[name]
+
+
+_functions = {}  # name -> (library, {symbol: ctypes function})
+
+
+def functions(name: str, signatures: dict) -> dict:
+    """The C functions of csrc/<name>.cu by symbol, each resolved and given
+    its ``(argtypes, restype)`` from ``signatures`` once per library load,
+    so that a launch costs a dictionary lookup, not a symbol lookup."""
+    lib = load(name)
+    held = _functions.get(name)
+    if held is None or held[0] is not lib:
+        fns = {}
+        for symbol, (argtypes, restype) in signatures.items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = restype
+            fns[symbol] = fn
+        held = _functions[name] = (lib, fns)
+    return held[1]
+
+
+def current_stream(dev: int) -> int:
+    """The handle of PyTorch's current stream on card ``dev``, the stream
+    ``torch.cuda.current_stream(dev).cuda_stream`` names, read without
+    building a Stream object: 0.20-0.23 us a call against 5.5-7.2 us on
+    the host of an NVIDIA H100 80GB HBM3 at 700 W
+    (scripts/gather_launch_cost.py)."""
+    return torch._C._cuda_getCurrentRawStream(dev)
 
 
 def build_all() -> float:

@@ -2,10 +2,18 @@
 (csrc/gather.cu).
 
 Each takes a 1-D int32 table and a 1-D int32 index tensor on one CUDA
-card, launches its kernel on the current stream (no synchronisation) and
-returns the int32 output, or raises.  Their plain versions are in
+card, launches its kernel on the card's current stream (no
+synchronisation; the C side makes the card current only where another
+is) and returns the int32 output, or raises.  Their plain versions are in
 ops/gather.py, which also holds the dispatch by device.  ``launches``
-counts the launches of each kernel by wrapper name.
+counts the launches of each kernel by wrapper name, ``tier_launches``
+the launches of each tier.
+
+The kernel has two tiers (``gather_tier``): a table that fits one
+block's shared memory is staged there ("smem"); a larger one is read
+from device memory through the L2 ("l2").  The tier follows from the
+table's size and the limit the C side reports for the card; nothing else
+selects it.
 
 ``take`` (K2) does not check its indices: they are promised in [0, T),
 as ``mode="promise_in_bounds"`` promises, and a check would cost a host
@@ -20,27 +28,55 @@ import torch
 from . import build
 
 launches = {"take": 0, "take_along": 0, "take_rows": 0}
+tier_launches = {"smem": 0, "l2": 0}
 
-_SYMBOLS = {"take": "pfbwt_take", "take_along": "pfbwt_take_along",
-            "take_rows": "pfbwt_take_rows"}
+_LAUNCH_ARGS = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                 ctypes.c_void_p], ctypes.c_int)
+SIGNATURES = {"pfbwt_gather_smem_limit": ([ctypes.c_int], ctypes.c_int)}
+_SYMBOLS = {(name, tier): f"pfbwt_{name}_{tier}"
+            for name in launches for tier in tier_launches}
+SIGNATURES.update({symbol: _LAUNCH_ARGS for symbol in _SYMBOLS.values()})
 
-
-def _fn(name: str):
-    fn = getattr(build.load("gather"), _SYMBOLS[name])
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+_smem_limits = {}  # card -> bytes
 
 
-def _aligned_like(idx: torch.Tensor) -> torch.Tensor:
-    """An int32 output of idx's length whose address equals idx's modulo
-    16, so that the kernel's vector loads and stores align together."""
-    buf = torch.empty(idx.shape[0] + 3, dtype=torch.int32, device=idx.device)
-    shift = (idx.data_ptr() - buf.data_ptr()) % 16 // 4
-    return buf[shift: shift + idx.shape[0]]
+def gather_tier(table_bytes: int, smem_limit: int) -> str:
+    """The tier for a table of ``table_bytes``: "smem" when it fits
+    ``smem_limit``, the table bytes a block's shared memory takes on the
+    card (``pfbwt_gather_smem_limit``), else "l2"."""
+    return "smem" if table_bytes <= smem_limit else "l2"
+
+
+def smem_limit(dev: int) -> int:
+    """The shared-memory tier's limit in table bytes on card ``dev``, read
+    from the C side once a card."""
+    return _smem_limit(build.functions("gather", SIGNATURES), dev)
+
+
+def _smem_limit(fns: dict, dev: int) -> int:
+    limit = _smem_limits.get(dev)
+    if limit is None:
+        limit = fns["pfbwt_gather_smem_limit"](dev)
+        if limit < 0:
+            raise RuntimeError(f"gather: reading card {dev}'s shared memory "
+                               f"failed: CUDA error {-limit}")
+        _smem_limits[dev] = limit
+    return limit
+
+
+def output_like(idx: torch.Tensor) -> torch.Tensor:
+    """An int32 output of idx's length at idx's address modulo 16, so that
+    the kernel's vector loads and stores align together: ``empty_like``
+    for an aligned idx (every fresh allocation is), else a view into a
+    buffer three lanes longer."""
+    shift = idx.data_ptr() % 16
+    if shift == 0:
+        return torch.empty_like(idx)
+    n = idx.shape[0]
+    buf = torch.empty(n + 3, dtype=torch.int32, device=idx.device)
+    lead = (shift - buf.data_ptr() % 16) % 16 // 4
+    return buf[lead: lead + n]
 
 
 def _launch(name: str, table: torch.Tensor, idx: torch.Tensor):
@@ -50,24 +86,28 @@ def _launch(name: str, table: torch.Tensor, idx: torch.Tensor):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
     for what, t in (("table", table), ("idx", idx)):
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"{name}: unsupported device {t.device} ({what})")
-    if table.device != idx.device:
+    dev = idx.get_device()
+    if table.get_device() != dev:
         raise ValueError(f"{name}: table and idx on different cards")
-    if table.shape[0] == 0:
+    t = table.shape[0]
+    if t == 0:
         raise ValueError(f"{name}: the table is empty")
-    out = _aligned_like(idx)
+    out = output_like(idx)
     n = idx.shape[0]
     if n == 0:
         return out
-    fn = _fn(name)
-    with torch.cuda.device(idx.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(table.data_ptr(), table.shape[0], idx.data_ptr(),
-                out.data_ptr(), n, stream)
+    fns = build.functions("gather", SIGNATURES)
+    tier = gather_tier(4 * t, _smem_limit(fns, dev))
+    rc = fns[_SYMBOLS[name, tier]](
+        table.data_ptr(), t, idx.data_ptr(), out.data_ptr(), n, dev,
+        build.current_stream(dev))
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} kernel launch failed ({tier} tier): "
+                           f"CUDA error {rc}")
     launches[name] += 1
+    tier_launches[tier] += 1
     return out
 
 

@@ -35,16 +35,10 @@ def divisibility_constants(p: int) -> tuple[int, int, int]:
     return pow(p >> s, -1, _U64_LIMIT), s, (_U64_LIMIT - 1) // p
 
 
-def _fn():
-    lib = build.load("hash_scan")
-    fn = lib.pfbwt_cut_scan
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_ulonglong, ctypes.c_int, ctypes.c_ulonglong,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+SIGNATURES = {"pfbwt_cut_scan": ([
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_ulonglong, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_void_p,
+], ctypes.c_int)}
 
 
 def cut_scan(codes: torch.Tensor, w: int, p: int) -> torch.Tensor:
@@ -67,11 +61,15 @@ def cut_scan(codes: torch.Tensor, w: int, p: int) -> torch.Tensor:
     if n == 0:
         return cut
     qinv, s, limit = divisibility_constants(p)
-    fn = _fn()
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(codes.data_ptr(), cut.data_ptr(), n, w, qinv, s, limit,
-                stream)
+    fn = build.functions("hash_scan", SIGNATURES)["pfbwt_cut_scan"]
+    dev = codes.get_device()
+    args = (codes.data_ptr(), cut.data_ptr(), n, w, qinv, s, limit,
+            build.current_stream(dev))
+    if dev == torch.cuda.current_device():
+        rc = fn(*args)
+    else:  # a device context only where another card is current
+        with torch.cuda.device(dev):
+            rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"cut_scan kernel launch failed: CUDA error {rc}")
     launches += 1

@@ -8,7 +8,8 @@ indices are ``n_idx`` int32 values from [0, table_elems), both drawn from
 ``np.random.default_rng(0)`` as the TPU probe draws them (defaults 2^20
 and 2^24).  Prints, for torch.take (the counterpart of the probe's
 ``xla_take``) and for each kernel, the time, the GB/s of indices and
-whether the output matches torch.take's.  On the card the times are
+whether the output matches torch.take's; on the card also the kernels'
+tier for this table (shared memory or L2).  On the card the times are
 CUDA-event medians; with ``device="cpu"`` the plain versions run and the
 times are the host clock's.
 """
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from ..ops import gather
+from ..ops.cuda import gather as kernels
 
 TABLE_ELEMS = 1 << 20
 N_IDX = 1 << 24
@@ -63,6 +65,10 @@ def main(argv=None, device="cuda") -> dict:
     clock = "CUDA events" if dev.type == "cuda" else "host clock"
     print(f"table {tbl} i32 ({tbl * 4 / 1e6:.1f} MB), idx {nidx}, "
           f"{dev} ({clock})")
+    if dev.type == "cuda":
+        limit = kernels.smem_limit(table.device.index)
+        print(f"kernel tier: {kernels.gather_tier(4 * tbl, limit)} (tables "
+              f"up to {limit} B take the shared-memory tier on this card)")
     ref, ms = _time_ms(lambda: torch.take(table, idx64), dev)
     results = {"torch.take": (ms, None)}
     print(f"{'torch.take':28s} {ms:9.4f} ms  "

@@ -102,26 +102,42 @@ def test_fused_stream_card_equals_cpu(card):
 
 @pytest.mark.parametrize("name", ["take", "take_along", "take_rows"])
 def test_gather_kernels_equal_plain_on_card(card, name):
-    """K2-K4 bit for bit against their plain versions: tables of 1, 1000
-    and 2^20 entries, ragged lengths, views off a 16-byte boundary, and
-    for K3 and K4 indices in [-2T, 2T) (wrap, fill and clip)."""
+    """K2-K4 bit for bit against their plain versions in both tiers: tables
+    of 1 and 1000 entries, the last of the shared-memory tier and the first
+    of the L2 tier, and 2^20; each table also as a view off a 16-byte
+    boundary (offsets 1-3); ragged lengths around the 16-lane unroll;
+    index views off a 16-byte boundary; and for K3 and K4 indices in
+    [-2T, 2T) (wrap, fill and clip).  Each tier must have run."""
     rng = np.random.default_rng(9)
     plain = getattr(gather, name + "_plain")
     kernel = getattr(gather_kernels, name)
-    for t in (1, 1000, 1 << 20):
-        table = torch.from_numpy(rng.integers(
-            -(1 << 31), (1 << 31) - 1, size=t, dtype=np.int32)).to(card)
-        lo, hi = (0, t) if name == "take" else (-2 * t, 2 * t)
-        for n in (1, 3, 4, 5, 8191, 100_003):
-            for off in (0, 1, 2, 3):
-                buf = torch.from_numpy(rng.integers(
-                    lo, hi, size=n + off, dtype=np.int32)).to(card)
-                idx = buf[off:]
-                before = gather_kernels.launches[name]
-                got = kernel(table, idx)
-                torch.cuda.synchronize()
-                assert gather_kernels.launches[name] == before + 1
-                assert torch.equal(got, plain(table, idx)), (t, n, off)
+    last_smem = gather_kernels.smem_limit(card.index or 0) // 4
+    tiers = dict(gather_kernels.tier_launches)
+    for t in (1, 1000, last_smem, last_smem + 1, 1 << 20):
+        want_tier = "smem" if t <= last_smem else "l2"
+        for toff in (0, 1, 2, 3):
+            tbuf = torch.from_numpy(rng.integers(
+                -(1 << 31), (1 << 31) - 1, size=t + toff,
+                dtype=np.int32)).to(card)
+            table = tbuf[toff:]
+            assert table.data_ptr() % 16 == 4 * toff
+            lo, hi = (0, t) if name == "take" else (-2 * t, 2 * t)
+            for n in (1, 3, 4, 5, 15, 16, 17, 63, 65, 8191, 100_003):
+                for off in (0, 1, 2, 3):
+                    buf = torch.from_numpy(rng.integers(
+                        lo, hi, size=n + off, dtype=np.int32)).to(card)
+                    idx = buf[off:]
+                    before = gather_kernels.launches[name]
+                    in_tier = gather_kernels.tier_launches[want_tier]
+                    got = kernel(table, idx)
+                    torch.cuda.synchronize()
+                    assert gather_kernels.launches[name] == before + 1
+                    assert (gather_kernels.tier_launches[want_tier]
+                            == in_tier + 1), (t, want_tier)
+                    assert torch.equal(got, plain(table, idx)), (
+                        t, toff, n, off)
+    for tier in ("smem", "l2"):
+        assert gather_kernels.tier_launches[tier] > tiers[tier]
 
 
 ELEVEN = ("dict", "occ", "parse", "n", "bwlast", "ilist", "bwsai", "bwt",
