@@ -54,7 +54,31 @@ line:
    5's, one K1 launch, stage seconds and peak device memory; then
    --chunk-mb 16 on the same input: all eleven files equal the
    whole-array staged run's, one K1 launch per chunk.
-10. The full size of the streamed path: the 1 GiB pan-genome of
+   Between them (phase 8b), the staged -m build (-m -s -r: memory-mapped
+   checkpoint files, the streamed final stage on the card) of the 1 MB
+   input, card against CPU, library and CLI: the eleven files and the
+   .gsa/.glcp workspace identical, .glcp present (the native LCP kernel
+   ran).
+10. The staged -m build of the 64 MB input: its eleven files equal phase
+   9's; then, in a child process, a resume with --pfbwt-only -m -s -r from
+   phase 9's checkpoint files: .bwt/.sa/.ssa/.esa equal phase 9's, with
+   its emission chunks, stage seconds, peak device memory and peak host
+   RSS printed; .gsa holds one entry per dict byte and .glcp exists.
+11. vcf_to_bwt on a small panel (2 contigs of 20 kbp, 3 samples, the
+   CLI's --wsize 10 --mod 10): card against CPU for staged -s -r -m
+   --keep_parse (all fourteen files) and --fused -s -r -m; --threads 2
+   against the serial run; vcf_scan per haplotype + merge_mps + mps_to_ma
+   (card and CPU) against the one-shot .mps and .ma.
+12. vcf_to_bwt at full width: a 4 MiB reference (contigs of 3 and 1 MiB,
+   seed 4323) and 16 phased diploid samples (tests/vcf_gen.random_vcf:
+   0.003 sites a base, alt frequency 0.25, 10 % indels), 33 haplotypes,
+   about 138 M characters, at w=10, p=100 through the CLI: staged -s -r
+   -m and --fused -s -r -m.  Both runs' .bwt/.sa/.ssa/.esa/.ma/.mps are
+   identical, the SA and BWT hold on the text rebuilt from the scanned
+   records, and the card's .ma equals the host permute's over the same
+   .sa; scan, parse + BWT and SA->MA seconds, peak device memory, n, r and
+   marker runs are printed.
+13. The full size of the streamed path: the 1 GiB pan-genome of
    benchmarks/stream_big.py (32 mutated copies of a 32 MiB unit, SNP rate
    0.001, seed 4321) in checksum-only mode with the default chunk target
    and the automatic J2 switch, which must choose the streamed J2; then
@@ -720,6 +744,7 @@ def phase_stream_main(C, mono_res, mono_peak):
 
 ELEVEN = ("dict", "occ", "parse", "n", "bwlast", "ilist", "bwsai", "bwt",
           "sa", "ssa", "esa")
+MMAP_EXTS = ("gsa", "glcp")  # the -m workspace: the dict gSA and its LCP
 CHUNK_MB = 16
 
 
@@ -731,17 +756,19 @@ def read_files(prefix: str, exts=ELEVEN):
     return out
 
 
-def remove_files(prefix: str):
-    for ext in ELEVEN:
-        os.remove(f"{prefix}.{ext}")
+def remove_files(prefix: str, exts=ELEVEN + MMAP_EXTS):
+    for ext in exts:
+        if os.path.exists(f"{prefix}.{ext}"):
+            os.remove(f"{prefix}.{ext}")
 
 
 def staged_build(fasta: str, prefix: str, device: str = "cuda",
-                 chunk: int = 0):
-    """The staged build with -s -r through the library, as the CLI runs
-    it (pipeline.run_parser, or run_parser_chunked for --chunk-mb, then
-    run_pfbwt), with K1's count set to 0 just before and read just after.
-    Returns (n, info, launches, seconds, peak device bytes or None)."""
+                 chunk: int = 0, mmap: bool = False):
+    """The staged build with -s -r (and -m) through the library, as the
+    CLI runs it (pipeline.run_parser, or run_parser_chunked for
+    --chunk-mb, then run_pfbwt), with K1's count set to 0 just before and
+    read just after.  Returns (n, info, launches, seconds, peak device
+    bytes or None)."""
     import torch
 
     from pfbwtf_tpu_torch.ops.cuda import hash_scan as k1
@@ -761,7 +788,7 @@ def staged_build(fasta: str, prefix: str, device: str = "cuda",
     else:
         n = run_parser(fasta, prefix, params, device=device, info=info)
     run_pfbwt(PfbwtConfig(prefix=prefix, w=W, sa=True, rssa=True,
-                          device=device), n, info)
+                          device=device, mmap=mmap), n, info)
     peak = None
     if device == "cuda":
         torch.cuda.synchronize()
@@ -771,7 +798,7 @@ def staged_build(fasta: str, prefix: str, device: str = "cuda",
 
 def staged_line(info) -> str:
     keys = ("read_s", "stream_s", "scan_s", "dedup_s", "parse_bwt_s",
-            "assembly_s", "write_s")
+            "assembly_s", "layout_s", "chunks_s", "write_s")
     return ", ".join(f"{k} {info[k]:.4f}" for k in keys if k in info)
 
 
@@ -875,9 +902,373 @@ def phase_staged_main(fasta: str, C_len: int, fused_files):
           f"chunk compacted exactly); peak device memory {cpeak} bytes "
           f"({cpeak / 2**30:.2f} GiB); all eleven files equal the "
           "whole-array staged build")
-    remove_files(whole_pre)
     remove_files(chunk_pre)
-    return launches, claunch
+    return launches, claunch, whole_pre, whole
+
+
+def check_workspace(prefix: str, what: str):
+    """The -m workspace: .gsa holds one 8-byte entry per .dict byte, and
+    .glcp exists (the native LCP kernel ran, not the numpy fallback)."""
+    dict_b = os.path.getsize(f"{prefix}.dict")
+    check(os.path.getsize(f"{prefix}.gsa") == 8 * dict_b,
+          f"{what}: .gsa does not hold one entry per dict byte")
+    check(os.path.exists(f"{prefix}.glcp"),
+          f"{what}: no .glcp (the native SA-IS + LCP kernel did not run)")
+    return dict_b
+
+
+def phase_mmap_small(fasta: str, cpu):
+    """The staged -m build of the 1 MB pan-genome: card against CPU
+    through the library, the eleven files and .gsa/.glcp identical, the
+    .bwt/.sa/.ssa/.esa equal to phase 4's fused CPU build; then the CLI's
+    -m -s -r on the card."""
+    from pfbwtf_tpu_torch.cli.pfbwt_f import main as cli_main
+
+    out_dir = os.path.dirname(fasta)
+    pre = {d: os.path.join(out_dir, f"pan1mb_mmap_{d}")
+           for d in ("cuda", "cpu", "cli")}
+    _, info, launches, secs, peak = staged_build(fasta, pre["cuda"],
+                                                 mmap=True)
+    check(launches == 1, f"staged -m 1 MB: {launches} K1 launches, not 1")
+    staged_build(fasta, pre["cpu"], device="cpu", mmap=True)
+    exts = ELEVEN + MMAP_EXTS
+    want = read_files(pre["cpu"], exts)
+    check(read_files(pre["cuda"], exts) == want,
+          "staged -m 1 MB: the card's files differ from the CPU's")
+    for ext, data in result_files(cpu).items():
+        check(want[ext] == data, f"staged -m 1 MB: .{ext} differs from the "
+              "fused build")
+    check_workspace(pre["cuda"], "staged -m 1 MB")
+    rc = cli_main([fasta, "-o", pre["cli"], "-m", "-s", "-r"])
+    check(rc == 0, f"staged -m CLI exit code {rc}")
+    check(read_files(pre["cli"], exts) == want,
+          "staged -m 1 MB: the CLI's files differ from the CPU's")
+    print(f"1 MB staged -m build: cuda {secs:.2f} s ({staged_line(info)}), "
+          f"{info['n_chunks']} emission chunks, peak {peak} bytes; the "
+          "eleven files and .gsa/.glcp identical to the CPU run, library "
+          "and CLI (-m -s -r)")
+    for prefix in pre.values():
+        remove_files(prefix)
+    return launches
+
+
+# run in a child process, so that its peak RSS is its own: the CLI's
+# --pfbwt-only -m -s -r, with run_pfbwt's info collected on the way.  The
+# resident set is sampled from /proc/self/statm every 5 ms by a thread:
+# getrusage's ru_maxrss keeps the resident set of the parent, which the
+# child shares between fork and exec, and some kernels' /proc has no VmHWM
+_RESUME_CHILD = r"""
+import json, os, sys, threading, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from pfbwtf_tpu_torch import pipeline
+from pfbwtf_tpu_torch.cli.pfbwt_f import main
+def rss():
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, IndexError, ValueError):
+        return None
+torch.zeros(1, device="cuda")  # the CUDA context, before the baseline
+base, peak, done = rss(), [0], threading.Event()
+def sample():
+    while not done.is_set():
+        r = rss()
+        if r is None:
+            peak[0] = None
+            return
+        peak[0] = max(peak[0], r)
+        done.wait(0.005)
+sampler = threading.Thread(target=sample, daemon=True)
+sampler.start()
+info = {}
+run_pfbwt = pipeline.run_pfbwt
+pipeline.run_pfbwt = lambda cfg, n=None: run_pfbwt(cfg, n, info)
+t0 = time.perf_counter()
+rc = main(["-o", sys.argv[2], "--pfbwt-only", "-m", "-s", "-r"])
+torch.cuda.synchronize()
+done.set()
+sampler.join()
+info.update(rc=rc, seconds=time.perf_counter() - t0,
+            peak=torch.cuda.max_memory_allocated(), rss=peak[0],
+            rss_base=base)
+print(json.dumps(info))
+"""
+
+
+def phase_mmap_main(fasta: str, whole_pre: str, whole):
+    """The staged -m build of the 64 MB input: the whole build (stage 1
+    launches K1) against phase 9's files, then a resume with --pfbwt-only
+    -m -s -r from phase 9's checkpoint files in a child process: its
+    .bwt/.sa/.ssa/.esa equal phase 9's, and its stage seconds, emission
+    chunks, peak device memory and peak host RSS."""
+    out_dir = os.path.dirname(fasta)
+    mm_pre = os.path.join(out_dir, "pan64_mmap")
+    n, info, launches, secs, peak = staged_build(fasta, mm_pre, mmap=True)
+    check(launches == 1, f"staged -m 64 MB: {launches} K1 launches, not 1")
+    check(read_files(mm_pre) == whole,
+          "staged -m 64 MB: the eleven files differ from the staged build")
+    dict_b = check_workspace(mm_pre, "staged -m 64 MB")
+    print(f"64 MB staged -m build: {secs:.4f} s end to end "
+          f"({staged_line(info)}), {info['n_chunks']} emission chunks, peak "
+          f"device memory {peak} bytes ({peak / 2**30:.2f} GiB), K1 launches "
+          f"{launches}; the eleven files equal the staged build, .gsa = "
+          f"{dict_b} entries")
+    remove_files(mm_pre)
+
+    fresh_memory()
+    proc = subprocess.run(
+        [sys.executable, "-c", _RESUME_CHILD, HERE, whole_pre],
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, "staged -m resume: the child failed: "
+          + proc.stderr[-2000:])
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(child["rc"] == 0, f"staged -m resume: CLI exit code {child['rc']}")
+    rss = child["rss"]
+    got = read_files(whole_pre, ("bwt", "sa", "ssa", "esa"))
+    for ext, data in got.items():
+        check(data == whole[ext], f"staged -m resume: .{ext} differs from "
+              "the staged build")
+    check_workspace(whole_pre, "staged -m resume")
+    print(f"64 MB staged -m resume (--pfbwt-only -m -s -r, child process): "
+          f"{child['seconds']:.4f} s, layout {child['layout_s']:.4f} s, "
+          f"chunks + writes {child['chunks_s']:.4f} s, "
+          f"{child['n_chunks']} emission chunks of up to 2^22 slots; peak "
+          f"device memory {child['peak']} bytes "
+          f"({child['peak'] / 2**30:.2f} GiB), peak host RSS "
+          + (f"{rss} bytes ({rss / 2**30:.2f} GiB, sampled every 5 ms), "
+             f"of which {child['rss_base']} bytes before the resume "
+             "(interpreter, torch and the CUDA context)"
+             if rss else "not measured (no /proc/self/statm)")
+          + "; .bwt/.sa/.ssa/.esa equal the staged build")
+    remove_files(whole_pre)
+    return launches
+
+
+# the vcf_to_bwt panel: the shape of a chromosome panel of 1000 Genomes
+# (several contigs; phased diploid samples with SNPs and indels, as
+# tests/vcf_gen.random_vcf makes them; markers), cut in contig length and
+# sample count to twice the main path's text
+PANEL_SEED = 4323
+PANEL_CONTIGS = (("chrA", 3 << 20), ("chrB", 1 << 20))
+PANEL_SAMPLES = 16
+PANEL_SMALL_CONTIGS = (("chrA", 20_000), ("chrB", 20_000))
+PANEL_SMALL_SAMPLES = 3
+PANEL_VCF = dict(density=0.003, af=0.25, indel_frac=0.1, max_indel=6)
+VCF_EXTS = ("bwt", "sa", "ssa", "esa", "ma", "mps", "dict", "occ", "parse",
+            "n", "docs", "bwlast", "ilist", "bwsai")
+
+
+def make_panel(out_dir: str, name: str, contigs, nsamples: int, seed: int):
+    """A reference FASTA of random ACGT contigs (60-byte lines) and a
+    phased VCF panel on it; returns (fasta, vcf, sample names)."""
+    from tests.vcf_gen import random_vcf
+
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    seqs = [(c, acgt[rng.integers(0, 4, size=n)]) for c, n in contigs]
+    fasta = os.path.join(out_dir, f"{name}.fa")
+    with open(fasta, "wb") as f:
+        for c, seq in seqs:
+            f.write(b">" + c.encode() + b"\n")
+            for i in range(0, seq.size, 60):
+                f.write(seq[i: i + 60].tobytes() + b"\n")
+    vcf = os.path.join(out_dir, f"{name}.vcf")
+    samples = random_vcf(vcf, [(c, s.tobytes()) for c, s in seqs], rng,
+                         nsamples=nsamples, **PANEL_VCF)
+    return fasta, vcf, samples
+
+
+def vcf_cli(args, device: str = "cuda"):
+    """vcf_to_bwt's CLI, with K1's count set to 0 just before and read
+    just after and the pipeline's stage seconds collected.  Returns (info,
+    launches, seconds, peak device bytes or None)."""
+    import torch
+
+    from pfbwtf_tpu_torch.cli import vcf_to_bwt as cli
+    from pfbwtf_tpu_torch.ops.cuda import hash_scan as k1
+
+    if device == "cuda":
+        fresh_memory()
+    info = {}
+    run = cli.vcf_to_bwt
+    cli.vcf_to_bwt = lambda cfg: run(cfg, info)
+    k1.launches = 0
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(args, device=device)
+    finally:
+        cli.vcf_to_bwt = run
+    peak = None
+    if device == "cuda":
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"vcf_to_bwt {' '.join(args[2:])}: exit code {rc}")
+    return info, k1.launches, time.perf_counter() - t0, peak
+
+
+def vcf_files(prefix: str):
+    return read_files(prefix, [e for e in VCF_EXTS
+                               if os.path.exists(f"{prefix}.{e}")])
+
+
+def vcf_line(info) -> str:
+    return (f"scan {info['scan_s']:.4f} s, parse + BWT {info['build_s']:.4f} "
+            f"s, SA->MA {info['ma_s']:.4f} s (.mps index "
+            f"{info['ma_index_s']:.4f}, permute {info['ma_permute_s']:.4f}, "
+            f".ma write {info['ma_write_s']:.4f}); n={info['n']} "
+            f"r={info['r']} marker runs={info['ma_runs']}")
+
+
+def remove_prefix(prefix: str):
+    """Every file of a vcf_to_bwt or vcf_scan run under ``prefix``."""
+    d, base = os.path.split(prefix)
+    for f in os.listdir(d):
+        if f.startswith(base + "."):
+            os.remove(os.path.join(d, f))
+
+
+def phase_vcf_small(out_dir: str):
+    """vcf_to_bwt on a small panel (2 contigs of 20 kbp, 3 samples, the
+    CLI's --wsize 10 --mod 10): card against CPU, staged (-s -r -m
+    --keep_parse, all fourteen files) and fused (--fused -s -r -m); the
+    staged run with --threads 2 against the serial one; and the
+    reference's process graph, vcf_scan per haplotype + merge_mps +
+    mps_to_ma (card and CPU), against the one-shot .mps and .ma."""
+    from pfbwtf_tpu_torch.cli import merge_mps, mps_to_ma, vcf_scan
+
+    fa, vcf, samples = make_panel(out_dir, "panel_small",
+                                  PANEL_SMALL_CONTIGS, PANEL_SMALL_SAMPLES,
+                                  PANEL_SEED + 1)
+    pre = os.path.join(out_dir, "vs")
+    launches = {}
+    for mode, extra in (("staged", ["--keep_parse"]), ("fused", ["--fused"])):
+        files = {}
+        for device in ("cuda", "cpu"):
+            info, launch, secs, _ = vcf_cli(
+                [fa, vcf, "-o", f"{pre}_{mode}_{device}", "-s", "-r", "-m",
+                 *extra], device)
+            files[device] = vcf_files(f"{pre}_{mode}_{device}")
+            if device == "cuda":
+                launches[mode] = launch
+                check(launch >= 1, f"vcf_to_bwt small {mode}: no K1 launch")
+                line = f"{secs:.2f} s ({vcf_line(info)})"
+        check(files["cuda"] == files["cpu"], f"vcf_to_bwt small {mode}: the "
+              "card's files differ from the CPU's")
+        check(len(files["cuda"]) == (14 if mode == "staged" else 6),
+              f"vcf_to_bwt small {mode}: files missing")
+        print(f"vcf_to_bwt small panel {mode}: cuda {line}, K1 launches "
+              f"{launches[mode]}; {sorted(files['cuda'])} identical to the "
+              "CPU run")
+    staged = vcf_files(f"{pre}_staged_cuda")
+    vcf_cli([fa, vcf, "-o", f"{pre}_threads", "-s", "-r", "-m",
+             "--keep_parse", "--threads", "2"])
+    check(vcf_files(f"{pre}_threads") == staged,
+          "vcf_to_bwt small: --threads 2 differs from the serial run")
+
+    scan = f"{pre}_scan"
+    check(vcf_scan.main(["-f", fa, "-o", scan, "-r", "-m", vcf]) == 0,
+          "vcf_scan -r failed")
+    prefixes = [scan + ".ref"]
+    for s in samples:
+        for h in (0, 1):
+            check(vcf_scan.main(["-f", fa, "-o", scan, "-S", s, "-H", str(h),
+                                 "-m", vcf]) == 0, "vcf_scan failed")
+            prefixes.append(f"{scan}.{s}.{h}")
+    check(merge_mps.main([f"{pre}_graph.mps", *prefixes]) == 0,
+          "merge_mps failed")
+    check(read_files(f"{pre}_graph", ("mps",))["mps"] == staged["mps"],
+          "merge_mps of the vcf_scan outputs differs from vcf_to_bwt's .mps")
+    for device in ("cuda", "cpu"):
+        rc = mps_to_ma.main([f"{pre}_graph.mps", f"{pre}_staged_cuda.sa",
+                             "-o", f"{pre}_graph_{device}.ma"], device=device)
+        check(rc == 0, f"mps_to_ma on {device}: exit code {rc}")
+        check(read_files(f"{pre}_graph_{device}", ("ma",))["ma"]
+              == staged["ma"], f"mps_to_ma on {device} differs from "
+              "vcf_to_bwt's .ma")
+    print(f"vcf_to_bwt small panel: --threads 2 equals the serial run; "
+          f"vcf_scan x {len(prefixes)} + merge_mps + mps_to_ma (card and "
+          "CPU) give vcf_to_bwt's .mps and .ma")
+    for prefix in (f"{pre}_staged_cuda", f"{pre}_staged_cpu",
+                   f"{pre}_fused_cuda", f"{pre}_fused_cpu", f"{pre}_threads",
+                   scan, f"{pre}_graph", f"{pre}_graph_cuda",
+                   f"{pre}_graph_cpu"):
+        remove_prefix(prefix)
+    remove_prefix(os.path.join(out_dir, "panel_small"))
+    return launches
+
+
+def phase_vcf_panel(out_dir: str):
+    """vcf_to_bwt at full width: a 4 MiB reference (3 + 1 MiB contigs) and
+    16 phased samples, 33 haplotypes, about 138 M characters of text, at
+    the main path's w and p, through the CLI on the card: staged -s -r -m
+    and --fused -s -r -m.  The two runs' .bwt/.sa/.ssa/.esa/.ma/.mps are
+    identical; the SA and BWT hold on the text rebuilt from the scanned
+    records; the card's .ma equals the host permute's over the same .sa."""
+    import io
+
+    from pfbwtf_tpu_torch.markers.ma import marker_array_from_sa
+    from pfbwtf_tpu_torch.markers.mps import write_mps_runs
+    from pfbwtf_tpu_torch.markers.rle_window import RleWindowArray
+    from pfbwtf_tpu_torch.ops.parse import ParserParams, build_stream
+    from pfbwtf_tpu_torch.vcf.reader import merge_vcfs
+    from pfbwtf_tpu_torch.vcf.scan_worker import scan_task
+
+    t0 = time.perf_counter()
+    fa, vcf, samples = make_panel(out_dir, "panel", PANEL_CONTIGS,
+                                  PANEL_SAMPLES, PANEL_SEED)
+    nsites = sum(1 for line in open(vcf) if not line.startswith("#"))
+    print(f"panel: contigs {PANEL_CONTIGS}, {len(samples)} samples, "
+          f"{nsites} VCF records, made in {time.perf_counter() - t0:.2f} s")
+    pre = os.path.join(out_dir, "panel_out")
+    launches, files = {}, {}
+    for mode, extra in (("staged", []), ("fused", ["--fused"])):
+        info, launch, secs, peak = vcf_cli(
+            [fa, vcf, "-o", f"{pre}_{mode}", "-s", "-r", "-m", "--wsize",
+             str(W), "--mod", str(P), *extra])
+        check(launch >= 1, f"vcf_to_bwt {mode}: no K1 launch")
+        launches[mode] = launch
+        files[mode] = read_files(f"{pre}_{mode}",
+                                 ("bwt", "sa", "ssa", "esa", "ma", "mps"))
+        print(f"vcf_to_bwt panel {mode}: {secs:.4f} s end to end "
+              f"({vcf_line(info)}), peak device memory {peak} bytes "
+              f"({peak / 2**30:.2f} GiB), K1 launches {launch}")
+    check(files["staged"] == files["fused"], "vcf_to_bwt panel: the staged "
+          "and fused runs' files differ")
+    bwt = np.frombuffer(bytearray(files["staged"]["bwt"]), dtype=np.uint8)
+    sa = np.frombuffer(files["staged"]["sa"], dtype=np.uint64)
+    del files
+
+    t1 = time.perf_counter()
+    vcfr = merge_vcfs([vcf])
+    scan_args = {"fasta": fa, "w": W, "ma_wsize": 1, "want_markers": False}
+    tasks = [("", 0, True)] + [(s, h, False) for s in samples for h in (0, 1)]
+    records = [rec for task in tasks
+               for rec in scan_task(vcfr, scan_args, task).records]
+    C, _, _ = build_stream(records, ParserParams(w=W, p=P,
+                                                 non_acgt_to_a=True))
+    del records
+    check_bwt_sa(C, bwt, sa, "cuda")
+    print(f"vcf_to_bwt panel: {len(tasks)} haplotypes, n={C.shape[0]}; SA "
+          f"and BWT checks passed on the text rebuilt from the scanned "
+          f"records ({time.perf_counter() - t1:.2f} s)")
+    del C, bwt
+
+    t2 = time.perf_counter()
+    runs = marker_array_from_sa(sa.view(np.int64),
+                                RleWindowArray(f"{pre}_staged.mps"))
+    host_s = time.perf_counter() - t2
+    buf = io.BytesIO()
+    write_mps_runs(buf, *runs)
+    with open(f"{pre}_staged.ma", "rb") as f:
+        check(buf.getvalue() == f.read(), "vcf_to_bwt panel: the card's .ma "
+              "differs from the host permute's")
+    print(f"vcf_to_bwt panel: the card's .ma ({len(runs[2])} runs) equals "
+          f"markers/ma.marker_array_from_sa on the host ({host_s:.2f} s)")
+    for prefix in (f"{pre}_staged", f"{pre}_fused",
+                   os.path.join(out_dir, "panel")):
+        remove_prefix(prefix)
+    return launches["staged"], launches["fused"]
 
 
 def phase_stream_big():
@@ -987,10 +1378,18 @@ def main() -> int:
                                                   small_fasta)
     by_path["fused -m 64 MB"] = phase_stream_main(C, mono_res, mono_peak)
     by_path["staged 1 MB"] = phase_staged_small(small_fasta, small_cpu)
-    by_path["staged 64 MB"], by_path[f"staged --chunk-mb {CHUNK_MB}"] = (
-        phase_staged_main(fasta64, C.shape[0], result_files(mono_res)))
+    by_path["staged -m 1 MB"] = phase_mmap_small(small_fasta, small_cpu)
+    (by_path["staged 64 MB"], by_path[f"staged --chunk-mb {CHUNK_MB}"],
+     whole_pre, whole) = phase_staged_main(fasta64, C.shape[0],
+                                           result_files(mono_res))
+    by_path["staged -m 64 MB"] = phase_mmap_main(fasta64, whole_pre, whole)
     os.remove(fasta64)
-    del C, mono_res
+    del C, mono_res, whole
+    small = phase_vcf_small(out_dir)
+    by_path["vcf_to_bwt small staged"] = small["staged"]
+    by_path["vcf_to_bwt small fused"] = small["fused"]
+    by_path["vcf_to_bwt staged"], by_path["vcf_to_bwt fused"] = (
+        phase_vcf_panel(out_dir))
     by_path[f"fused -m {BIG_MB} MB"] = phase_stream_big()
     row["launches_by_path"] = by_path
     print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")

@@ -8,13 +8,16 @@ Two builds run on the CUDA card:
 - the staged build (the default; ``--device`` is accepted and changes
   nothing): parse, parse-BWT and final BWT with the reference's
   checkpoint files, ``--parse-only`` / ``--pfbwt-only`` to run one half,
-  ``--chunk-mb N`` for the bounded-memory parse, ``--print-docs``;
+  ``--chunk-mb N`` for the bounded-memory parse, ``--print-docs``, and
+  ``-m`` for the streamed bounded-memory final stage;
 - the fused whole-pipeline build (``--fused``), with its streamed form
   (``--fused -m``) for inputs past the one-program memory ceiling.
 
-Every other mode exits 1 with a message: the staged ``-m``, ``--fused``
-with a staged-only flag, ``--mesh``, ``--shards`` and ``--workers``.
-``--u32`` selects the 32-bit build's file widths; the default is 64-bit.
+As in pfbwtf_tpu, ``--shards`` 0 or 1 and a ``--workers`` count without
+``--shards`` change nothing.  Every other mode exits 1 with a message:
+``--fused`` with a staged-only flag or ``--workers``, ``--mesh`` and
+``--shards`` > 1 (the multi-device modules are not ported).  ``--u32``
+selects the 32-bit build's file widths; the default is 64-bit.
 """
 
 import argparse
@@ -40,9 +43,10 @@ def build_argparser():
     ap.add_argument("-w", "--window-size", type=int, default=10, dest="w")
     ap.add_argument("-p", "--mod-val", type=int, default=100, dest="p")
     ap.add_argument("-m", "--mmap", action="store_true",
-                    help="with --fused: the streamed build, which writes "
-                         ".bwt/.sa chunk by chunk (the staged -m is not "
-                         "ported yet)")
+                    help="streamed final stage: memory-mapped checkpoint "
+                         "files, .bwt/.sa written chunk by chunk, .gsa/.glcp "
+                         "workspace (with --fused: the streamed fused "
+                         "build)")
     ap.add_argument("--parse-only", action="store_true")
     ap.add_argument("--pfbwt-only", action="store_true")
     ap.add_argument("--trim-non-acgt", action="store_true")
@@ -65,32 +69,30 @@ def build_argparser():
     ap.add_argument("--mesh", action="store_true",
                     help="multi-device parse (not ported yet)")
     ap.add_argument("--shards", type=int, default=0,
-                    help="pod-style sharded parse (not ported yet)")
+                    help="pod-style sharded parse; N > 1 is not ported yet")
     ap.add_argument("--workers", type=int, default=0,
-                    help="process workers for --shards (not ported yet)")
+                    help="process workers for --shards > 1 (not ported yet)")
     return ap
 
 
-# modes of the reference CLI that this port does not have
-_UNPORTED_FLAGS = (
-    ("mesh", "--mesh"), ("shards", "--shards"), ("workers", "--workers"),
-)
-# flags of the staged build, which --fused does not take
-_STAGED_ONLY_FLAGS = (
+# flags of the staged build, which --fused does not take, and --workers
+_FUSED_REFUSES = (
     ("chunk_mb", "--chunk-mb"), ("parse_only", "--parse-only"),
     ("pfbwt_only", "--pfbwt-only"), ("print_docs", "--print-docs"),
+    ("workers", "--workers"),
 )
 
 
 def _unported_mode(args):
     """The name of a requested mode this port does not have, or None."""
     where = "--fused with " if args.fused else ""
-    for attr, flag in _UNPORTED_FLAGS + (
-            _STAGED_ONLY_FLAGS if args.fused else ()):
+    if args.mesh:
+        return where + "--mesh"
+    if args.shards > 1:
+        return where + "--shards > 1"
+    for attr, flag in _FUSED_REFUSES if args.fused else ():
         if getattr(args, attr):
             return where + flag
-    if args.mmap and not args.fused:
-        return "the staged build with -m"
     return None
 
 
@@ -153,7 +155,7 @@ def _run_staged(args, output: str, dtype, device) -> int:
         run_pfbwt(PfbwtConfig(
             prefix=output, w=args.w, sa=args.sa, rssa=args.rssa,
             verbose=args.verbose, dtype=dtype, stdout_ext=args.stdout_ext,
-            device=device,
+            device=device, mmap=args.mmap,
         ), n)
     return 0
 

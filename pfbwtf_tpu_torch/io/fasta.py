@@ -2,9 +2,11 @@
 first whitespace, sequence = all non-whitespace bytes until the next '>'
 header.  Plain or gzip (including bgzip) files, or '-' for stdin: whole
 (``read_fasta_bytes``) or one record at a time (``iter_fasta_records``,
-for the bounded-memory parse)."""
+for the bounded-memory parse).  A samtools-faidx equivalent
+(``write_fai``, ``fetch_contig``) serves the VCF haplotype scan."""
 
 import gzip
+import os
 import sys
 from typing import List, Tuple
 
@@ -129,3 +131,72 @@ def _cat_seq(parts: List[np.ndarray]) -> np.ndarray:
     if not parts:
         return np.zeros(0, dtype=np.uint8)
     return np.ascontiguousarray(np.concatenate(parts))
+
+
+# -- faidx -------------------------------------------------------------------
+
+def write_fai(fasta_fname: str, fai_fname: str = None) -> str:
+    """samtools-faidx-compatible index: name len offset linebases linewidth."""
+    fai_fname = fai_fname or fasta_fname + ".fai"
+    rows = []
+    with open(fasta_fname, "rb") as f:
+        name = None
+        length = 0
+        offset = 0
+        linebases = 0
+        linewidth = 0
+        first_line = True
+        pos = 0
+        for raw in f:
+            line = raw.rstrip(b"\r\n")
+            if raw.startswith(b">"):
+                if name is not None:
+                    rows.append((name, length, offset, linebases, linewidth))
+                name = line[1:].split()[0].decode() if len(line) > 1 else ""
+                length = 0
+                offset = pos + len(raw)
+                first_line = True
+            elif name is not None and line:
+                if first_line:
+                    linebases = len(line)
+                    linewidth = len(raw)
+                    first_line = False
+                length += len(line)
+            pos += len(raw)
+        if name is not None:
+            rows.append((name, length, offset, linebases, linewidth))
+    with open(fai_fname, "w") as f:
+        for r in rows:
+            f.write("{}\t{}\t{}\t{}\t{}\n".format(*r))
+    return fai_fname
+
+
+def read_fai(fai_fname: str):
+    idx = {}
+    order = []
+    with open(fai_fname) as f:
+        for line in f:
+            parts = line.split("\t")
+            if len(parts) < 5:
+                continue
+            name = parts[0]
+            idx[name] = tuple(int(x) for x in parts[1:5])
+            order.append(name)
+    return idx, order
+
+
+def fetch_contig(fasta_fname: str, contig: str) -> bytes:
+    """fai_fetch equivalent: contig sequence with newlines stripped."""
+    fai = fasta_fname + ".fai"
+    if not os.path.exists(fai):
+        write_fai(fasta_fname)
+    idx, _ = read_fai(fai)
+    if contig not in idx:
+        raise KeyError(f"contig {contig!r} not in {fasta_fname}")
+    length, offset, linebases, linewidth = idx[contig]
+    nlines = (length + linebases - 1) // linebases if linebases else 0
+    nbytes = length + nlines * (linewidth - linebases)
+    with open(fasta_fname, "rb") as f:
+        f.seek(offset)
+        raw = f.read(nbytes)
+    return raw.replace(b"\n", b"").replace(b"\r", b"")[:length]

@@ -1,11 +1,14 @@
-"""ctypes loader of the host C++ kernel ``native/sais.cpp``, for the host
-dedup's byte-lex substring ranks (``rank_substrings``).
+"""ctypes loader of the host C++ kernel ``native/sais.cpp``: the host
+dedup's byte-lex substring ranks (``rank_substrings``) and, for the staged
+-m assembly's dict-scale layout, the generalized dict suffix array with its
+LCP (``sais_int_lcp32`` / ``sais_int_lcp``, the gsacak(SA, LCP) role).
 
 The library is built with g++ at first use into
 ``build/pfbwtf_tpu_torch/libsais-<hash>.so`` at the repository root (the
 hash covers the source and the flags), never beside the source.  A
 missing compiler or a failed build makes ``available()`` false, and the
-host dedup (ops/parse._dedup_and_rank) takes its numpy path.
+host dedup (ops/parse._dedup_and_rank) and the dict suffix layout
+(ops/bwt.suffix_layout) take their numpy paths.
 """
 
 import ctypes
@@ -60,6 +63,11 @@ def load() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_int64),
             ctypes.POINTER(ctypes.c_int64),
         ]
+        for name, ct in (("sais_int_lcp", ctypes.c_int64),
+                         ("sais_int_lcp32", ctypes.c_int32)):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.POINTER(ct)] * 3 + [ct, ct]
         _lib = lib
     return _lib
 
@@ -95,3 +103,29 @@ def rank_substrings_native(T: np.ndarray, starts: np.ndarray,
     if rc != 0:
         raise PfbwtError(f"rank_substrings failed with code {rc}")
     return ranks, int(nd.value)
+
+
+def dict_suffix_sort_lcp_native(dict_flat: np.ndarray):
+    """Generalized dict SA + LCP (the gsacak(SA, LCP) role).  With distinct
+    separator symbols the LCP counts only real matched chars, so suffix
+    equality groups are exactly (len equal) & (lcp >= len).  Uses the
+    32-bit kernel instantiation whenever sizes fit.  Returns (sa, lcp,
+    word_id, suf_len, dwords)."""
+    from .ops.suffix_np import dict_initial_symbols_np
+
+    lib = load()
+    sym, word_id, suf_len, dwords = dict_initial_symbols_np(dict_flat)
+    n = sym.shape[0]
+    K = int(sym.max()) + 1 if n else 1
+    if n < 2**31 - 2 and K < 2**31 - 2:
+        fn, dt, ct = lib.sais_int_lcp32, np.int32, ctypes.c_int32
+    else:
+        fn, dt, ct = lib.sais_int_lcp, np.int64, ctypes.c_int64
+    s = np.ascontiguousarray(sym.astype(dt))
+    sa = np.empty(n, dtype=dt)
+    lcp = np.empty(n, dtype=dt)
+    rc = fn(*(a.ctypes.data_as(ctypes.POINTER(ct)) for a in (s, sa, lcp)),
+            n, K)
+    if rc != 0:
+        raise PfbwtError(f"sais_int_lcp failed with code {rc}")
+    return sa, lcp, word_id, suf_len, dwords

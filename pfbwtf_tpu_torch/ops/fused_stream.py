@@ -39,7 +39,7 @@ from ..utils.tables import codes_or_die
 from ..utils.timer import task_timer
 from . import fused
 from .bwt_dev import _emit_decode, emission_state
-from .bwt_mmap import _RunState
+from .bwt_mmap import _ChunkWriter
 from .suffix import compact_indices
 
 _I64_MAX = 2**63 - 1
@@ -180,22 +180,6 @@ def _peak(dev):
     return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
 
 
-def _start_fetch(bwt_d, sa_d):
-    """Queue the download of one chunk; returns (bwt, sa, event) with host
-    tensors that are complete once ``event`` (None on the CPU) is."""
-    if bwt_d.device.type == "cpu":
-        return bwt_d, sa_d, None
-    bwt_h = torch.empty(bwt_d.shape, dtype=bwt_d.dtype, pin_memory=True)
-    bwt_h.copy_(bwt_d, non_blocking=True)
-    sa_h = None
-    if sa_d is not None:
-        sa_h = torch.empty(sa_d.shape, dtype=sa_d.dtype, pin_memory=True)
-        sa_h.copy_(sa_d, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return bwt_h, sa_h, event
-
-
 def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
                        sa_fp=None, sa_dtype=np.dtype("<u8"),
                        chunk_target: int = 48 << 20, max_chunks: int = 256,
@@ -275,26 +259,9 @@ def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
     chunk_b = fused._bucket(max(max_m, 1))
     info["chunk_b"] = chunk_b
 
-    runs = _RunState(np.dtype(sa_dtype))
-    need_sa = sa_fp is not None or want_rssa
-
-    def write(base_c, fetched):
-        bwt_h, sa_h, event = fetched
-        if event is not None:
-            event.synchronize()
-        bwtc = bwt_h.numpy()
-        if bwt_fp is not None:
-            bwt_fp.write(bwtc.tobytes())
-        sa_np = None
-        if need_sa:
-            sa_np = sa_h.numpy().view(np.uint64)
-            if sa_fp is not None:
-                sa_fp.write(sa_np.astype(sa_dtype).tobytes())
-        runs.feed(base_c, bwtc, sa_np if want_rssa else None)
-
+    out = _ChunkWriter(bwt_fp, sa_fp, sa_dtype, want_rssa)
     ck_sum = torch.zeros((), dtype=torch.int64, device=dev)
     bad_sum = torch.zeros((), dtype=torch.int64, device=dev)
-    pending = None
     n_chunks = 0
     with task_timer("streamed build: J3e emission chunks"):
         for c in range(max_chunks):
@@ -309,13 +276,8 @@ def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
             bad_sum += bad
             n_chunks += 1
             if fetch:
-                fetched = _start_fetch(bwt_d[:m_c],
-                                       sa_d[:m_c] if need_sa else None)
-                if pending is not None:
-                    write(*pending)
-                pending = (bases[c], fetched)
-        if pending is not None:
-            write(*pending)
+                out.put(bases[c], bwt_d[:m_c], sa_d[:m_c])
+        out.flush()
         checksum, nbad = torch.stack((ck_sum, bad_sum)).tolist()  # host sync
     info.update(chunks_s=time.perf_counter() - t2, n_chunks=n_chunks,
                 peak_chunks=_peak(dev))
@@ -327,6 +289,6 @@ def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
     if not fetch:
         return None, total, checksum
     if want_rssa:
-        ssa, esa = runs.finish(total)
-        return runs.nruns, total, checksum, ssa, esa
-    return runs.nruns, total, checksum
+        ssa, esa = out.runs.finish(total)
+        return out.runs.nruns, total, checksum, ssa, esa
+    return out.runs.nruns, total, checksum

@@ -69,6 +69,7 @@ class PfbwtConfig:
     dtype: np.dtype = U64
     stdout_ext: str = ""  # '-c <ext>': route one output to stdout
     device: str = "cuda"
+    mmap: bool = False  # -m: memmap inputs + streamed bounded-memory stage 3
 
 
 def run_parser(in_fname: str, output: str, params: ParserParams, dtype=U64,
@@ -123,20 +124,29 @@ def run_pfbwt(cfg: PfbwtConfig, n: Optional[int] = None, info: dict = None):
     """Stage 3: load the checkpoint files, assemble the final BWT on
     cfg.device, write .bwt[/.sa][/.ssa/.esa].  ``info`` receives
     assembly_s and the seconds of the reads and writes (write_s, added
-    to)."""
+    to); with cfg.mmap, _run_pfbwt_stream's keys instead."""
     info = {} if info is None else info
     prefix = cfg.prefix
     t0 = time.perf_counter()
-    dict_flat = formats.read_dict_flat(prefix + "." + EXT.DICT)
-    occs = formats.read_occ(prefix + "." + EXT.OCC, cfg.dtype)
-    bwlast = formats.read_u8(prefix + "." + EXT.BWLST)
-    ilist = formats.read_uint(prefix + "." + EXT.ILIST, cfg.dtype)
+    if cfg.mmap:
+        # -m mode: the inputs stay file-backed (file_wrappers.hpp MMap role)
+        def read(ext, dtype):
+            return np.memmap(prefix + "." + ext, dtype=dtype, mode="r")
+    else:
+        def read(ext, dtype):
+            return formats.read_uint(prefix + "." + ext, dtype)
+    dict_flat = read(EXT.DICT, np.uint8)
+    occs = read(EXT.OCC, cfg.dtype)
+    bwlast = read(EXT.BWLST, np.uint8)
+    ilist = read(EXT.ILIST, cfg.dtype)
     any_sa = cfg.sa or cfg.rssa
-    bwsai = (formats.read_uint(prefix + "." + EXT.BWSAI, cfg.dtype)
-             if any_sa else None)
+    bwsai = read(EXT.BWSAI, cfg.dtype) if any_sa else None
     if n is None:
         n = formats.read_n(prefix + "." + EXT.N)
     check_text_width(n, cfg.dtype)
+    if cfg.mmap:
+        return _run_pfbwt_stream(cfg, dict_flat, occs, bwlast, ilist, bwsai,
+                                 n, info)
     t1 = time.perf_counter()
     with task_timer(
         "generating final BWT w/ full and/or run-length SA"
@@ -159,15 +169,50 @@ def run_pfbwt(cfg: PfbwtConfig, n: Optional[int] = None, info: dict = None):
         sa_fp.write(res.sa.astype(cfg.dtype).tobytes())
         if sa_fp is not sys.stdout.buffer:
             sa_fp.close()
-    if cfg.rssa:
-        with open(prefix + "." + EXT.SSA, "wb") as f:
-            f.write(res.ssa.astype(cfg.dtype).tobytes())
-        with open(prefix + "." + EXT.ESA, "wb") as f:
-            f.write(res.esa.astype(cfg.dtype).tobytes())
+    _finish(cfg, n, res.nruns, res.ssa, res.esa)
     info["assembly_s"] = t2 - t1
     info["write_s"] = (info.get("write_s", 0.0) + (t1 - t0)
                        + time.perf_counter() - t2)
-    print(f"n: {n}", file=sys.stderr)
-    print(f"r: {res.nruns}", file=sys.stderr)
-    print(f"n/r: {n / res.nruns:.3f}", file=sys.stderr)
     return res
+
+
+def _finish(cfg: PfbwtConfig, n: int, nruns: int, ssa, esa):
+    """The run-length samples (.ssa/.esa with -r) and the n/r lines."""
+    if cfg.rssa:
+        with open(cfg.prefix + "." + EXT.SSA, "wb") as f:
+            f.write(ssa.astype(cfg.dtype).tobytes())
+        with open(cfg.prefix + "." + EXT.ESA, "wb") as f:
+            f.write(esa.astype(cfg.dtype).tobytes())
+    print(f"n: {n}", file=sys.stderr)
+    print(f"r: {nruns}", file=sys.stderr)
+    print(f"n/r: {n / nruns:.3f}", file=sys.stderr)
+
+
+def _run_pfbwt_stream(cfg: PfbwtConfig, dict_flat, occs, bwlast, ilist,
+                      bwsai, n, info):
+    """-m stage 3: the streamed bounded-memory assembly on cfg.device,
+    straight into the output files, with the .gsa/.glcp workspace spill
+    (ops/bwt_mmap).  ``info`` receives assemble_bwt_stream's keys and
+    assembly_s, which here includes the writes."""
+    from .ops.bwt_mmap import assemble_bwt_stream
+
+    t0 = time.perf_counter()
+    with task_timer("generating final BWT (mmap mode)"):
+        bwt_fp = _out_handle(cfg, EXT.BWT)
+        sa_fp = _out_handle(cfg, EXT.SA) if cfg.sa else None
+        try:
+            nruns, ssa, esa = assemble_bwt_stream(
+                dict_flat, cfg.w, np.asarray(occs).astype(np.int64),
+                bwlast, ilist, bwsai, n,
+                bwt_fp, sa_fp=sa_fp, want_rssa=cfg.rssa,
+                sa_dtype=cfg.dtype, workspace_prefix=cfg.prefix,
+                workspace_dtype=cfg.dtype, device=cfg.device, info=info,
+            )
+        finally:
+            if bwt_fp is not sys.stdout.buffer:
+                bwt_fp.close()
+            if sa_fp is not None and sa_fp is not sys.stdout.buffer:
+                sa_fp.close()
+    _finish(cfg, n, nruns, ssa, esa)
+    info["assembly_s"] = time.perf_counter() - t0
+    return nruns

@@ -1,0 +1,308 @@
+"""vcf_to_bwt: reference FASTA + phased VCF panel -> BWT, SA and marker
+array (pfbwtf_tpu/vcf/pipeline.py), every heavy stage on one device.
+
+Orchestration equivalent of vcf_to_bwt.py (reference :184-293), minus the
+process graph: where the reference wires `vcf_scan | pfbwt-f64 --parse-only`
+per haplotype through a multiprocessing.Pool and merges with merge_pfp, we
+scan every haplotype on the host (each independent), build ONE parse over
+the concatenated collection — exactly equivalent to the reference's
+operator+= fold, because the merged parse is a pure function of the
+concatenated padded text — and emit the final BWT in one assembly pass.
+The SA->MA permute consumes the SA array directly instead of a unix pipe
+(vcf_to_bwt.py:258-285).
+
+The parse (kernel K1's cut scan), the parse-BWT, the assembly and the
+SA->MA permute run on ``cfg.device``: the staged stages of engine.py, or
+with ``cfg.fused`` the fused build of ops/fused.py.
+
+Haplotype order matches the reference: [ref] + [sample h0, sample h1, ...]
+(vcf_to_bwt.py:191-192).
+"""
+
+import os
+import sys
+import time
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+
+from .. import engine
+from ..io import formats
+from ..io.fasta import write_fai
+from ..markers.ma_dev import marker_array_from_sa_dev
+from ..markers.mps import read_mps_runs, write_mps_runs
+from ..markers.rle_window import RleWindowArray
+from ..ops.parse import ParserParams
+from ..pipeline import save_parser
+from ..utils.errors import die
+from ..utils.timer import task_timer
+from .reader import merge_vcfs
+from .scan import write_scan_outputs
+from .scan_worker import scan_task
+
+
+@dataclass
+class VcfToBwtConfig:
+    fasta: str
+    vcfs: List[str]
+    output: str = "out"
+    samples: Optional[List[str]] = None  # default: all samples in first VCF
+    wsize: int = 10
+    mod: int = 100
+    ma_wsize: int = 1
+    sa: bool = False
+    rssa: bool = False
+    ma: bool = False
+    save_fasta: bool = False
+    keep_parse: bool = True
+    threads: int = 1
+    dtype: np.dtype = formats.U64
+    device: str = "cuda"
+    contigs: Optional[List[str]] = None  # restrict (index-seek if .csi/.tbi)
+    # the fused build (ops/fused.py) in place of the staged stages; it
+    # writes no .parse/.dict checkpoint files (no host-visible parse)
+    fused: bool = False
+    mesh: bool = False  # not ported: needs the parallel/ modules
+
+
+def _setup_logger(output: str):
+    """Timestamped dual-handler logger (OUT.log file + stderr), the
+    reference orchestrator's observability surface (vcf_to_bwt.py:194-202).
+    Reconfigured per run so repeated calls don't stack handlers."""
+    import logging
+
+    logger = logging.getLogger("pfbwtf_tpu_torch.vcf_to_bwt")
+    logger.setLevel(logging.DEBUG)
+    logger.propagate = False
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+        h.close()
+    fmt = logging.Formatter("[%(asctime)s] %(message)s")
+    fh = logging.FileHandler(output + ".log", mode="w")
+    fh.setFormatter(fmt)
+    sh = logging.StreamHandler(sys.stderr)
+    sh.setFormatter(fmt)
+    logger.addHandler(fh)
+    logger.addHandler(sh)
+    return logger
+
+
+def _scan_subprocess(vcf, scan_args: dict, tasks, nworkers: int,
+                     names=None):
+    """Run the haplotype scans in ``python -m pfbwtf_tpu_torch.vcf.
+    scan_worker`` child processes (bounded to ``nworkers`` concurrent),
+    returning results in task order.  See scan_worker's docstring for why
+    this is neither a fork pool nor multiprocessing spawn."""
+    import pickle
+    import subprocess
+    import tempfile
+
+    pkg_root = os.path.dirname(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = os.environ.copy()
+    env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
+    with tempfile.TemporaryDirectory(prefix="pfbwt_scan") as td:
+        ctx_path = os.path.join(td, "ctx.pkl")
+        with open(ctx_path, "wb") as f:
+            pickle.dump((vcf, scan_args, tasks), f,
+                        protocol=pickle.HIGHEST_PROTOCOL)
+        outs = [os.path.join(td, f"scan{i}.pkl") for i in range(len(tasks))]
+        pending = list(range(len(tasks)))
+        running: list = []
+        logs: list = []
+        while pending or running:
+            while pending and len(running) < nworkers:
+                i = pending.pop(0)
+                cmd = [sys.executable, "-m",
+                       "pfbwtf_tpu_torch.vcf.scan_worker", ctx_path, str(i),
+                       outs[i]]
+                # per-stage .log file: command echo + worker stderr
+                # (the reference's per-haplotype logs, vcf_to_bwt.py:91,112)
+                log_fp = None
+                if names is not None:
+                    log_fp = open(names[i] + ".log", "w")
+                    log_fp.write(" ".join(cmd) + "\n")
+                    log_fp.flush()
+                    logs.append(log_fp)
+                running.append((i, subprocess.Popen(
+                    cmd, env=env, stderr=log_fp)))
+            i, proc = running.pop(0)
+            rc = proc.wait()  # returncode checked per reference
+            if rc != 0:       # (vcf_to_bwt.py:130-136)
+                for _, p in running:
+                    p.terminate()
+                    p.wait()
+                die(f"haplotype scan worker {i} failed (exit {rc})")
+        for fp in logs:
+            fp.close()
+        results = []
+        for path in outs:
+            with open(path, "rb") as f:
+                results.append(pickle.load(f))
+        return results
+
+
+def vcf_to_bwt(cfg: VcfToBwtConfig, info: dict = None):
+    """The whole pipeline; returns the BWTResult.  ``info`` receives the
+    stage seconds (scan_s; build_s: parse, parse-BWT and assembly or the
+    fused build; ma_s: the SA->MA stage, of it ma_index_s reading the
+    merged .mps, ma_permute_s the permute with its upload and download,
+    ma_write_s the .ma write), n, r and ma_runs."""
+    if cfg.mesh:
+        die("vcf_to_bwt --mesh is not ported to pfbwtf_tpu_torch yet")
+    info = {} if info is None else info
+    log = _setup_logger(cfg.output)
+    write_fai(cfg.fasta)
+    vcf = merge_vcfs(cfg.vcfs, contigs=cfg.contigs)
+    samples = cfg.samples if cfg.samples else list(vcf.samples)
+    log.info(
+        "vcf_to_bwt: %d vcf(s), %d sample(s), w=%d p=%d threads=%d",
+        len(cfg.vcfs), len(samples), cfg.wsize, cfg.mod, cfg.threads,
+    )
+
+    # scan ref + every haplotype, in worker processes with --threads, the
+    # reference's mp.Pool (vcf_to_bwt.py:230-237)
+    tasks = [("", 0, True)] + [
+        (sample, hap, False) for sample in samples for hap in (0, 1)
+    ]
+    names = [cfg.output + ".ref"] + [
+        f"{cfg.output}.{sample}.{hap}"
+        for sample in samples
+        for hap in (0, 1)
+    ]
+    scan_args = {"fasta": cfg.fasta, "w": cfg.wsize,
+                 "ma_wsize": cfg.ma_wsize, "want_markers": cfg.ma}
+    log.info("generating haplotype sequences from VCF (%d scans)", len(tasks))
+    t0 = time.perf_counter()
+    with task_timer("scanning VCF haplotypes"):
+        if cfg.threads > 1 and len(tasks) > 1:
+            scans = _scan_subprocess(
+                vcf, scan_args, tasks, min(cfg.threads, len(tasks)),
+                names=names,
+            )
+        else:
+            scans = [scan_task(vcf, scan_args, t) for t in tasks]
+    info["scan_s"] = time.perf_counter() - t0
+    prefixes = list(zip(names, scans))
+
+    if cfg.save_fasta:
+        for name, scan in prefixes:
+            write_scan_outputs(scan, name, cfg.wsize)
+
+    # merged .mps: offset each prefix's runs by its cumulative text length
+    # (merge_mps semantics, src/merge_mps.cpp:63-81)
+    if cfg.ma:
+        with task_timer("merging marker positions"), open(
+            cfg.output + ".mps", "wb"
+        ) as ofp:
+            bias = 0
+            for name, scan in prefixes:
+                starts, ends, markers = read_mps_runs(scan.mps_bytes)
+                write_mps_runs(
+                    ofp,
+                    (starts.astype(np.int64) + bias).astype(np.uint64),
+                    (ends.astype(np.int64) + bias).astype(np.uint64),
+                    markers,
+                )
+                bias += scan.n(cfg.wsize)
+
+    # one parse over the whole collection == merge_pfp fold of per-haplotype
+    # parses (vcf_to_bwt.py:242-248)
+    all_records = [rec for _, scan in prefixes for rec in scan.records]
+    params = ParserParams(
+        w=cfg.wsize,
+        p=cfg.mod,
+        get_sai=True,
+        store_docs=True,
+        non_acgt_to_a=True,
+    )
+    want_sa_vals = cfg.sa or cfg.ma
+    t1 = time.perf_counter()
+    if cfg.fused:
+        if cfg.keep_parse:
+            log.info("fused pipeline: no host-visible parse exists, "
+                     ".parse/.dict checkpoint files are skipped")
+        from ..ops.fused import pfbwt_fused_records
+
+        log.info("fused device pipeline over haplotype collection "
+                 "(%d records)", len(all_records))
+        with task_timer("fused device pipeline (parse+pfbwt)"):
+            bwt_res, _ = pfbwt_fused_records(
+                all_records, params, device=cfg.device,
+                want_sa=want_sa_vals, want_rssa=cfg.rssa, sa_dtype=cfg.dtype,
+            )
+    else:
+        bwt_res = _staged_stages(cfg, log, all_records, params, want_sa_vals)
+    info["build_s"] = time.perf_counter() - t1
+    _write_bwt_outputs(cfg, log, bwt_res, info)
+    return bwt_res
+
+
+def _staged_stages(cfg, log, all_records, params, want_sa_vals):
+    """parse -> parse-BWT -> assembly through engine.py's stages on
+    cfg.device, with the checkpoint files when cfg.keep_parse."""
+    log.info("parsing haplotype collection (%d records)", len(all_records))
+    with task_timer("parsing collection"):
+        res = engine.parse_records(all_records, params, cfg.device)
+    if cfg.keep_parse:
+        save_parser(res, cfg.output, cfg.dtype)
+
+    with task_timer("bwt of parse"):
+        pb = engine.parse_bwt(res, get_sai=True, device=cfg.device)
+    if cfg.keep_parse:
+        formats.write_u8(cfg.output + ".bwlast", pb.bwlast)
+        formats.write_uint(cfg.output + ".ilist", pb.ilist, cfg.dtype)
+        formats.write_uint(cfg.output + ".bwsai", pb.bwsai, cfg.dtype)
+
+    log.info("constructing BWT%s of text collection",
+             " + SA" if want_sa_vals else "")
+    with task_timer("generating final BWT"):
+        return engine.assemble_bwt(
+            res.dict_flat(),
+            cfg.wsize,
+            res.occs.astype(np.int64),
+            pb.bwlast,
+            pb.ilist,
+            pb.bwsai,
+            res.n,
+            want_sa=want_sa_vals,
+            want_rssa=cfg.rssa,
+            sa_dtype=cfg.dtype,
+            device=cfg.device,
+        )
+
+
+def _write_bwt_outputs(cfg, log, bwt_res, info: dict):
+    """Final outputs shared by the staged and fused paths: .bwt/.sa/.ssa/
+    .esa files, the SA->MA permute on cfg.device, and the reference's n/r
+    stats lines."""
+    n = bwt_res.bwt.shape[0] - 1
+    with open(cfg.output + ".bwt", "wb") as f:
+        f.write(bwt_res.bwt.tobytes())
+    if cfg.sa:
+        with open(cfg.output + ".sa", "wb") as f:
+            f.write(bwt_res.sa.astype(cfg.dtype).tobytes())
+    if cfg.rssa:
+        with open(cfg.output + ".ssa", "wb") as f:
+            f.write(bwt_res.ssa.astype(cfg.dtype).tobytes())
+        with open(cfg.output + ".esa", "wb") as f:
+            f.write(bwt_res.esa.astype(cfg.dtype).tobytes())
+    if cfg.ma:
+        log.info("constructing marker array from SA stream")
+        t0 = time.perf_counter()
+        with task_timer("constructing marker array"):
+            mai = RleWindowArray(cfg.output + ".mps")
+            t1 = time.perf_counter()
+            starts, ends, markers = marker_array_from_sa_dev(
+                bwt_res.sa, mai, device=cfg.device)
+            t2 = time.perf_counter()
+            with open(cfg.output + ".ma", "wb") as f:
+                write_mps_runs(f, starts, ends, markers)
+        t3 = time.perf_counter()
+        info.update(ma_s=t3 - t0, ma_index_s=t1 - t0, ma_permute_s=t2 - t1,
+                    ma_write_s=t3 - t2, ma_runs=len(markers))
+    info.update(n=n, r=bwt_res.nruns)
+    log.info("done: n=%d r=%d n/r=%.3f", n, bwt_res.nruns,
+             n / max(bwt_res.nruns, 1))
+    print(f"n: {n}\nr: {bwt_res.nruns}", file=sys.stderr)

@@ -1,6 +1,6 @@
 """The port's CLI (``python -m pfbwtf_tpu_torch.cli.pfbwt_f``: the staged
-build, ``--fused`` and ``--fused -m``) writes the same bytes as the
-pfbwtf_tpu CLI."""
+build, ``--fused`` and ``--fused -m``; the staged ``-m`` is in
+test_torch_mmap.py) writes the same bytes as the pfbwtf_tpu CLI."""
 
 import numpy as np
 import pytest
@@ -171,7 +171,24 @@ def test_cli_parse_only_then_pfbwt_only_across_packages(tmp_path, parser,
 
 
 @pytest.mark.parametrize("args", [
-    ["--mesh"], ["-m"], ["--fused", "-m", "--mesh"], ["--fused", "--mesh"],
+    ["-s", "-r", "--shards", "1"], ["-s", "-r", "--workers", "2"],
+    ["--fused", "-s", "--shards", "1"],
+])
+def test_cli_lone_shards_and_workers_equal_jax(tmp_path, args):
+    """--shards 1 and a --workers count without --shards > 1 change
+    nothing in pfbwtf_tpu's CLI (its pod parse runs only for --shards > 1,
+    and --fused reads neither): the same exit code and files."""
+    fa = tmp_path / "in.fa"
+    _fasta(fa)
+    rc = jax_main([str(fa), "-o", str(tmp_path / "jax"), *args])
+    assert torch_main([str(fa), "-o", str(tmp_path / "port"), *args],
+                      device="cpu") == rc == 0
+    exts = ("bwt", "sa") if "--fused" in args else ELEVEN
+    _assert_files_equal(tmp_path, "port", "jax", exts)
+
+
+@pytest.mark.parametrize("args", [
+    ["--mesh"], ["--fused", "-m", "--mesh"], ["--fused", "--mesh"],
     ["--fused", "--parse-only"],
     ["--fused", "--pfbwt-only"], ["--fused", "--print-docs"],
     ["--shards", "2"], ["--fused", "--chunk-mb", "4"],

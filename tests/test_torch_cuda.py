@@ -1,5 +1,6 @@
-"""Kernels K1-K4, and the fused and staged builds, on a CUDA card against
-the plain PyTorch versions and the CPU run.  Marked ``cuda``: each test
+"""Kernels K1-K4, the fused and staged builds (the staged -m included),
+the device SA->MA permute and vcf_to_bwt on a CUDA card against the plain
+PyTorch versions and the CPU run.  Marked ``cuda``: each test
 skips when no card is present.  On the card:
 ``python -m pytest --noconftest -q tests/test_torch_cuda.py``."""
 
@@ -10,6 +11,10 @@ import pytest
 import torch
 
 from pfbwtf_tpu_torch.cli.pfbwt_f import main as cli_main
+from pfbwtf_tpu_torch.markers.ma_dev import marker_array_from_sa_dev
+from pfbwtf_tpu_torch.markers.mps import write_mps_runs
+from pfbwtf_tpu_torch.markers.rle_window import RleWindowArray
+from pfbwtf_tpu_torch.ops.bwt_mmap import assemble_bwt_stream
 from pfbwtf_tpu_torch.ops import gather
 from pfbwtf_tpu_torch.ops.cuda import gather as gather_kernels
 from pfbwtf_tpu_torch.ops.cuda import hash_scan as k1
@@ -173,3 +178,102 @@ def test_staged_card_equals_cpu(card, tmp_path):
         want = (tmp_path / f"cpu.{ext}").read_bytes()
         assert (tmp_path / f"gpu.{ext}").read_bytes() == want, ext
         assert (tmp_path / f"chk.{ext}").read_bytes() == want, ext
+
+
+def test_marker_array_dev_card_equals_cpu(card):
+    """The SA->MA permute on the card: the runs of its CPU run, from a
+    permutation with values past every run, as an array and as a tensor
+    already on the card."""
+    rng = np.random.default_rng(8)
+    edges = np.sort(rng.choice(np.arange(1, 200_000), size=4000,
+                               replace=False)).astype(np.uint64)
+    lists = [np.array([k, k + 7], np.uint64) for k in range(1, 6)]
+    buf = io.BytesIO()
+    write_mps_runs(buf, edges[0::2], edges[1::2],
+                   [lists[i] for i in rng.integers(0, 5, size=2000)])
+    mai = RleWindowArray(buf.getvalue())
+    sa = np.concatenate((rng.permutation(200_001),
+                         rng.integers(200_001, 1 << 40, size=1000)))
+    want = marker_array_from_sa_dev(sa, mai, device="cpu")
+    for arg in (sa.astype(np.uint64), torch.from_numpy(sa).to(card)):
+        got = marker_array_from_sa_dev(arg, mai, device="cuda")
+        assert np.array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
+        assert len(got[2]) == len(want[2]) > 100
+        assert all(np.array_equal(a, b) for a, b in zip(got[2], want[2]))
+
+
+def test_assemble_bwt_stream_card_equals_cpu(card, tmp_path):
+    """The staged -m stage 3 on the card at chunk 64 (many chunks): the
+    .bwt/.sa bytes, runs, samples and .gsa/.glcp of the CPU run; then the
+    CLI's -m -s -r on the card equals its run on the CPU."""
+    from pfbwtf_tpu_torch.engine import parse_bwt, parse_records
+
+    rng = np.random.default_rng(10)
+    records = [("s", rng.choice(ACGT, size=30000))]
+    res = parse_records(records, ParserParams(w=4, p=9, get_sai=True),
+                        device="cuda")
+    pb = parse_bwt(res, device="cuda")
+    args = (res.dict_flat(), 4, res.occs.astype(np.int64), pb.bwlast,
+            pb.ilist, pb.bwsai, res.n)
+    outs = []
+    for device in ("cuda", "cpu"):
+        bwt_fp, sa_fp, info = io.BytesIO(), io.BytesIO(), {}
+        out = assemble_bwt_stream(
+            *args, bwt_fp, sa_fp=sa_fp, want_rssa=True, chunk=64,
+            workspace_prefix=str(tmp_path / device), device=device,
+            info=info)
+        assert info["n_chunks"] > 100
+        outs.append((bwt_fp.getvalue(), sa_fp.getvalue(), out))
+    (gb, gs, go), (cb, cs, co) = outs
+    assert gb == cb and gs == cs and go[0] == co[0]
+    assert np.array_equal(go[1], co[1]) and np.array_equal(go[2], co[2])
+    for ext in ("gsa", "glcp"):
+        assert ((tmp_path / f"cuda.{ext}").read_bytes()
+                == (tmp_path / f"cpu.{ext}").read_bytes())
+    fa = tmp_path / "in.fa"
+    fa.write_bytes(b">s\n" + records[0][1].tobytes() + b"\n")
+    for device in ("cuda", "cpu"):
+        assert cli_main([str(fa), "-o", str(tmp_path / f"m{device}"), "-m",
+                         "-s", "-r"], device=device) == 0
+    for ext in ELEVEN + ("gsa", "glcp"):
+        assert ((tmp_path / f"mcuda.{ext}").read_bytes()
+                == (tmp_path / f"mcpu.{ext}").read_bytes()), ext
+
+
+def test_vcf_to_bwt_card_equals_cpu(card, tmp_path):
+    """vcf_to_bwt staged and fused on the card: every file of the CPU run,
+    and K1 launched by each build."""
+    import shutil
+
+    from pfbwtf_tpu_torch.vcf.pipeline import VcfToBwtConfig, vcf_to_bwt
+
+    from .vcf_gen import random_vcf
+
+    rng = np.random.default_rng(11)
+    contigs = [(f"c{i}", rng.choice(ACGT, size=5000).tobytes())
+               for i in range(2)]
+    fa = tmp_path / "ref.fa"
+    fa.write_bytes(b"".join(b">%s\n%s\n" % (n.encode(), s)
+                            for n, s in contigs))
+    vcf = str(tmp_path / "p.vcf")
+    random_vcf(vcf, contigs, rng, nsamples=3, density=0.01, indel_frac=0.2)
+    exts = ("bwt", "sa", "ssa", "esa", "ma", "mps", "dict", "occ", "parse",
+            "n", "docs", "bwlast", "ilist", "bwsai")
+    for fused in (False, True):
+        for device in ("cuda", "cpu"):
+            name = f"{device}{int(fused)}"
+            shutil.copy(fa, tmp_path / f"{name}.fa")
+            before = k1.launches
+            vcf_to_bwt(VcfToBwtConfig(
+                fasta=str(tmp_path / f"{name}.fa"), vcfs=[vcf],
+                output=str(tmp_path / name), sa=True, rssa=True, ma=True,
+                fused=fused, device=device))
+            if device == "cuda":
+                assert k1.launches > before
+        for ext in exts:
+            want = tmp_path / f"cpu{int(fused)}.{ext}"
+            got = tmp_path / f"cuda{int(fused)}.{ext}"
+            assert want.exists() == got.exists(), ext
+            if want.exists():
+                assert got.read_bytes() == want.read_bytes(), ext

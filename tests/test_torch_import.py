@@ -66,13 +66,17 @@ def test_no_jax_or_reference_package_import(path):
 NEW_MODULES = (
     "engine", "pipeline", "native", "ops.chunked", "ops.gather",
     "ops.cuda.gather", "parallel.dict_union", "probes.gather_probe",
+    "ops.suffix_np", "ops.bwt_mmap", "markers.ma", "markers.ma_dev",
+    "markers.mps", "vcf.reader", "vcf.scan", "vcf.scan_worker",
+    "vcf.pipeline", "cli.vcf_to_bwt", "cli.vcf_scan", "cli.merge_mps",
+    "cli.mps_to_ma",
 )
 
 
 @pytest.mark.parametrize("name", NEW_MODULES)
 def test_staged_and_probe_modules_are_checked(name):
-    """The AST check above covers the staged build's and the probe's
-    modules (it walks the package)."""
+    """The AST check above covers the modules of the staged build, the
+    probe and vcf_to_bwt (it walks the package)."""
     path = os.path.join(PKG, *name.split(".")) + ".py"
     assert path in list(_port_sources())
 
