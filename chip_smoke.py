@@ -49,11 +49,24 @@ line:
    on the card against the CPU, through the library (run_parser +
    run_pfbwt) and the CLI: all eleven files (.dict .occ .parse .n
    .bwlast .ilist .bwsai .bwt .sa .ssa .esa) identical; the chunked
-   parse in several chunks against the whole-array parse.
+   parse in several chunks against the whole-array parse.  Then (phase
+   8c) the same staged build with PFBWT_BACKEND=numpy, K1 on the card and
+   the parse-BWT and the assembly on the host: the eleven files equal the
+   card's; and simplebwt (the brute-force SA oracle) over the records each
+   padded with w 'A's: its .bwt and .sa equal the staged build's.
 9. The staged build of the 64 MB input: .bwt/.sa/.ssa/.esa equal phase
    5's, one K1 launch, stage seconds and peak device memory; then
    --chunk-mb 16 on the same input: all eleven files equal the
-   whole-array staged run's, one K1 launch per chunk.
+   whole-array staged run's, one K1 launch per chunk.  Phase 9b,
+   merge_pfp at full width: the 8 records as 4 FASTA shards of 2, three
+   parsed on the card (--parse-only -s), the fourth given as a FASTA;
+   merge_pfp -s --parse-bwt on the card launches K1 once, its seven files
+   equal the staged build's checkpoint files, and --pfbwt-only -s -r on
+   them gives its .bwt/.sa/.ssa/.esa; the merge's seconds by part and its
+   peak device memory are printed.  Phase 9c: the resume of the staged
+   build's checkpoint files with PFBWT_ASSEMBLE_BACKEND=numpy (stage 3 on
+   the host): .bwt/.sa/.ssa/.esa equal the card's, assembly_s printed
+   beside the card's.
    Between them (phase 8b), the staged -m build (-m -s -r: memory-mapped
    checkpoint files, the streamed final stage on the card) of the 1 MB
    input, card against CPU, library and CLI: the eleven files and the
@@ -68,7 +81,10 @@ line:
    CLI's --wsize 10 --mod 10): card against CPU for staged -s -r -m
    --keep_parse (all fourteen files) and --fused -s -r -m; --threads 2
    against the serial run; vcf_scan per haplotype + merge_mps + mps_to_ma
-   (card and CPU) against the one-shot .mps and .ma.
+   (card and CPU) against the one-shot .mps and .ma; consensus -H 1 -x
+   (marker window 1) against vcf_scan's FASTA and .mps of the same
+   haplotype; dump_markers and readable_markers on the .ma, one line a run
+   and one a position.
 12. vcf_to_bwt at full width: a 4 MiB reference (contigs of 3 and 1 MiB,
    seed 4323) and 16 phased diploid samples (tests/vcf_gen.random_vcf:
    0.003 sites a base, alt frequency 0.25, 10 % indels), 33 haplotypes,
@@ -856,6 +872,81 @@ def phase_staged_small(fasta: str, cpu):
           f"{k1.launches} K1 launches, equal to the whole-array parse")
     for prefix in pre.values():
         remove_files(prefix)
+    return launches, want
+
+
+class host_env:
+    """The PFBWT_* variable ``name`` set to "numpy" inside the block (and
+    removed after it), and the calls of the host stages counted in
+    ``calls``: inside it the staged build runs stages 2 and/or 3 on the
+    host, as ``name`` selects them (engine.py)."""
+
+    def __init__(self, name: str):
+        self.name, self.calls, self.originals = name, {}, []
+
+    def __enter__(self):
+        from pfbwtf_tpu_torch.ops import bwt, parse_bwt
+
+        for mod, fn_name in ((parse_bwt, "bwt_of_parse"),
+                             (bwt, "assemble_bwt")):
+            fn = getattr(mod, fn_name)
+            self.originals.append((mod, fn_name, fn))
+            self.calls[fn_name] = 0
+
+            def counted(*a, _fn=fn, _name=fn_name, **k):
+                self.calls[_name] += 1
+                return _fn(*a, **k)
+            setattr(mod, fn_name, counted)
+        os.environ[self.name] = "numpy"
+        return self
+
+    def __exit__(self, *exc):
+        os.environ.pop(self.name, None)
+        for mod, fn_name, fn in self.originals:
+            setattr(mod, fn_name, fn)
+        return False
+
+
+def phase_host_small(fasta: str, records, want):
+    """Phase 8c: the staged build of the 1 MB pan-genome with
+    PFBWT_BACKEND=numpy (K1 on the card, the parse-BWT and the assembly
+    on the host): its eleven files equal phase 8's; then simplebwt (the
+    brute-force oracle, host numpy) over the records each padded with w
+    'A's: its .bwt and .sa equal phase 8's."""
+    from pfbwtf_tpu_torch.cli import simplebwt
+
+    out_dir = os.path.dirname(fasta)
+    pre = os.path.join(out_dir, "pan1mb_host")
+    with host_env("PFBWT_BACKEND") as env:
+        _, info, launches, secs, peak = staged_build(fasta, pre)
+    check(launches == 1, f"staged 1 MB, host stages: {launches} K1 "
+          "launches, not 1")
+    check(env.calls == {"bwt_of_parse": 1, "assemble_bwt": 1},
+          f"staged 1 MB, host stages: host calls {env.calls}")
+    check(read_files(pre) == want, "staged 1 MB with PFBWT_BACKEND=numpy: "
+          "the files differ from the card's")
+    print(f"1 MB staged build, PFBWT_BACKEND=numpy: {secs:.2f} s "
+          f"({staged_line(info)}), K1 launches {launches}, host "
+          f"bwt_of_parse and assemble_bwt once each, peak device memory "
+          f"{peak} bytes; all eleven files equal the card's")
+    remove_files(pre)
+
+    padded = os.path.join(out_dir, "pan1mb_padded.fa")
+    write_fasta(padded, [(name, np.concatenate(
+        (seq, np.full(W, ord("A"), np.uint8)))) for name, seq in records])
+    t0 = time.perf_counter()
+    rc = simplebwt.main([padded, "-o", pre, "-s"])
+    secs = time.perf_counter() - t0
+    check(rc == 0, f"simplebwt exit code {rc}")
+    got = read_files(pre, ("bwt", "sa"))
+    check(got["bwt"] == want["bwt"], "simplebwt: .bwt differs from the "
+          "staged build's")
+    check(got["sa"] == want["sa"], "simplebwt: .sa differs from the staged "
+          "build's")
+    print(f"1 MB simplebwt (numpy prefix doubling over the whole text): "
+          f"{secs:.2f} s; .bwt and .sa equal the staged build's")
+    remove_files(pre, ("bwt", "sa"))
+    os.remove(padded)
     return launches
 
 
@@ -903,7 +994,121 @@ def phase_staged_main(fasta: str, C_len: int, fused_files):
           f"({cpeak / 2**30:.2f} GiB); all eleven files equal the "
           "whole-array staged build")
     remove_files(chunk_pre)
-    return launches, claunch, whole_pre, whole
+    return launches, claunch, whole_pre, whole, info
+
+
+MERGED_EXTS = ("dict", "occ", "parse", "n", "bwlast", "ilist", "bwsai")
+MERGE_SHARDS = 4
+
+
+def phase_merge_main(fasta: str, whole_pre: str, whole):
+    """Phase 9b: merge_pfp at full width.  The 64 MB input's 8 records as
+    4 FASTA shards of 2 records; the first three parsed on the card
+    (pfbwt_f --parse-only -s), the fourth given to merge_pfp as a FASTA.
+    merge_pfp -s --parse-bwt on the card launches K1 once, and its
+    .dict/.occ/.parse/.n/.bwlast/.ilist/.bwsai equal phase 9's checkpoint
+    files; pfbwt_f --pfbwt-only -s -r on them gives phase 9's
+    .bwt/.sa/.ssa/.esa."""
+    import torch
+
+    from pfbwtf_tpu_torch.cli.merge_pfp import main as merge_main
+    from pfbwtf_tpu_torch.cli.pfbwt_f import main as cli_main
+    from pfbwtf_tpu_torch.io.fasta import read_fasta_bytes
+    from pfbwtf_tpu_torch.ops.cuda import hash_scan as k1
+
+    out_dir = os.path.dirname(fasta)
+    records = read_fasta_bytes(fasta)
+    per = len(records) // MERGE_SHARDS
+    args, shard_fastas = [], []
+    t0 = time.perf_counter()
+    for i in range(MERGE_SHARDS):
+        shard = os.path.join(out_dir, f"pan64_shard{i}.fa")
+        write_fasta(shard, records[i * per: (i + 1) * per])
+        shard_fastas.append(shard)
+        if i == MERGE_SHARDS - 1:
+            args.append(shard)  # read by merge_pfp as a FASTA
+            continue
+        prefix = os.path.join(out_dir, f"pan64_shard{i}")
+        rc = cli_main([shard, "-o", prefix, "-s", "--parse-only"])
+        check(rc == 0, f"pfbwt_f --parse-only on shard {i}: exit code {rc}")
+        args.append(prefix)
+    del records
+    print(f"64 MB merge input: {MERGE_SHARDS} shards of {per} records, "
+          f"{MERGE_SHARDS - 1} parsed on the card (--parse-only -s) in "
+          f"{time.perf_counter() - t0:.2f} s, the last given as a FASTA")
+
+    merged = os.path.join(out_dir, "pan64_merged")
+    fresh_memory()
+    info = {}
+    k1.launches = 0
+    t0 = time.perf_counter()
+    rc = merge_main([*args, "-o", merged, "-s", "--parse-bwt"], info=info)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = k1.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"merge_pfp exit code {rc}")
+    check(launches == 1, f"merge_pfp 64 MB: {launches} K1 launches, not 1")
+    got = read_files(merged, MERGED_EXTS)
+    for ext in MERGED_EXTS:
+        check(got[ext] == whole[ext], f"merge_pfp 64 MB: .{ext} differs from "
+              "the whole staged build's")
+    print(f"64 MB merge_pfp -s --parse-bwt: {secs:.4f} s end to end (text "
+          f"rebuild {info['rebuild_s']:.4f}, scan {info['scan_s']:.4f}, "
+          f"dedup {info['dedup_s']:.4f}, parse-BWT "
+          f"{info['parse_bwt_s']:.4f}, writes {info['write_s']:.4f} s); "
+          f"peak device memory {peak} bytes ({peak / 2**30:.2f} GiB); K1 "
+          f"launches {launches}; {', '.join('.' + e for e in MERGED_EXTS)} "
+          "equal the whole staged build's")
+
+    t0 = time.perf_counter()
+    rc = cli_main(["-o", merged, "--pfbwt-only", "-s", "-r"])
+    check(rc == 0, f"pfbwt_f --pfbwt-only on the merge: exit code {rc}")
+    got = read_files(merged, ("bwt", "sa", "ssa", "esa"))
+    for ext, data in got.items():
+        check(data == whole[ext], f"merge_pfp 64 MB: the resumed .{ext} "
+              "differs from the whole staged build's")
+    print(f"64 MB --pfbwt-only -s -r on the merge: "
+          f"{time.perf_counter() - t0:.4f} s; .bwt/.sa/.ssa/.esa equal the "
+          "whole staged build's")
+    for i in range(MERGE_SHARDS - 1):
+        remove_files(os.path.join(out_dir, f"pan64_shard{i}"))
+    remove_files(merged)
+    for shard in shard_fastas:
+        os.remove(shard)
+    return launches
+
+
+def phase_host_assembly_main(whole_pre: str, whole, dev_info):
+    """Phase 9c: stage 3 on the host at full width, the resume of phase
+    9's checkpoint files (--pfbwt-only -s -r through pipeline.run_pfbwt)
+    with PFBWT_ASSEMBLE_BACKEND=numpy: native SA-IS over the dict, one
+    lexsort over the n + 1 emissions.  Its .bwt/.sa/.ssa/.esa equal phase
+    9's; its assembly_s is printed beside phase 9's on the card."""
+    import torch
+
+    from pfbwtf_tpu_torch.pipeline import PfbwtConfig, run_pfbwt
+
+    fresh_memory()
+    info = {}
+    t0 = time.perf_counter()
+    with host_env("PFBWT_ASSEMBLE_BACKEND") as env:
+        run_pfbwt(PfbwtConfig(prefix=whole_pre, w=W, sa=True, rssa=True),
+                  None, info)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(env.calls == {"bwt_of_parse": 0, "assemble_bwt": 1},
+          f"host assembly 64 MB: host calls {env.calls}")
+    got = read_files(whole_pre, ("bwt", "sa", "ssa", "esa"))
+    for ext, data in got.items():
+        check(data == whole[ext], f"host assembly 64 MB: .{ext} differs from "
+              "the card's")
+    print(f"64 MB stage 3 on the host (PFBWT_ASSEMBLE_BACKEND=numpy, "
+          f"--pfbwt-only -s -r): {secs:.4f} s, assembly_s "
+          f"{info['assembly_s']:.4f} (the card's, phase 9: "
+          f"{dev_info['assembly_s']:.4f}), reads + writes "
+          f"{info['write_s']:.4f} s; peak device memory {peak} bytes; "
+          ".bwt/.sa/.ssa/.esa equal the card's")
 
 
 def check_workspace(prefix: str, what: str):
@@ -1134,8 +1339,15 @@ def phase_vcf_small(out_dir: str):
     --keep_parse, all fourteen files) and fused (--fused -s -r -m); the
     staged run with --threads 2 against the serial one; and the
     reference's process graph, vcf_scan per haplotype + merge_mps +
-    mps_to_ma (card and CPU), against the one-shot .mps and .ma."""
-    from pfbwtf_tpu_torch.cli import merge_mps, mps_to_ma, vcf_scan
+    mps_to_ma (card and CPU), against the one-shot .mps and .ma; then
+    consensus -H 1 -x against vcf_scan's haplotype, and dump_markers and
+    readable_markers on the .ma."""
+    import contextlib
+    import io
+
+    from pfbwtf_tpu_torch.cli import (consensus, dump_markers, merge_mps,
+                                      mps_to_ma, readable_markers, vcf_scan)
+    from pfbwtf_tpu_torch.markers.mps import read_mps_runs
 
     fa, vcf, samples = make_panel(out_dir, "panel_small",
                                   PANEL_SMALL_CONTIGS, PANEL_SMALL_SAMPLES,
@@ -1189,10 +1401,35 @@ def phase_vcf_small(out_dir: str):
     print(f"vcf_to_bwt small panel: --threads 2 equals the serial run; "
           f"vcf_scan x {len(prefixes)} + merge_mps + mps_to_ma (card and "
           "CPU) give vcf_to_bwt's .mps and .ma")
+
+    # consensus -x with vcf_scan's marker window (-w 1): vcf_scan's FASTA
+    # and .mps for the same haplotype
+    cons = f"{pre}_consensus"
+    rc = consensus.main([vcf, "-f", fa, "-s", samples[0], "-H", "1", "-x",
+                         cons + ".mps", "-w", "1", "-o", cons + ".fa"])
+    check(rc == 0, f"consensus exit code {rc}")
+    for ext in ("fa", "mps"):
+        check(read_files(cons, (ext,)) == read_files(
+            f"{scan}.{samples[0]}.0", (ext,)), f"consensus -H 1 -x: .{ext} "
+            "differs from vcf_scan's")
+    ma = f"{pre}_staged_cuda.ma"
+    starts, ends, _ = read_mps_runs(ma)
+    npos = int((ends.astype(np.int64) - starts.astype(np.int64) + 1).sum())
+    for tool, want_lines in ((dump_markers, len(starts)),
+                             (readable_markers, npos)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = tool.main([ma])
+        lines = buf.getvalue().count("\n")
+        check(rc == 0 and lines == want_lines, f"{tool.__name__} on the .ma: "
+              f"exit code {rc}, {lines} lines, not {want_lines}")
+    print(f"consensus -s {samples[0]} -H 1 -x -w 1: FASTA and .mps equal "
+          f"vcf_scan's; dump_markers on the .ma: {len(starts)} lines, one "
+          f"a run; readable_markers: {npos} lines, one a position")
     for prefix in (f"{pre}_staged_cuda", f"{pre}_staged_cpu",
                    f"{pre}_fused_cuda", f"{pre}_fused_cpu", f"{pre}_threads",
                    scan, f"{pre}_graph", f"{pre}_graph_cuda",
-                   f"{pre}_graph_cpu"):
+                   f"{pre}_graph_cpu", cons):
         remove_prefix(prefix)
     remove_prefix(os.path.join(out_dir, "panel_small"))
     return launches
@@ -1377,11 +1614,17 @@ def main() -> int:
     by_path["fused -m 1 MB"] = phase_stream_small(small_records, small_cpu,
                                                   small_fasta)
     by_path["fused -m 64 MB"] = phase_stream_main(C, mono_res, mono_peak)
-    by_path["staged 1 MB"] = phase_staged_small(small_fasta, small_cpu)
+    by_path["staged 1 MB"], small_want = phase_staged_small(small_fasta,
+                                                            small_cpu)
+    by_path["staged 1 MB, PFBWT_BACKEND=numpy"] = phase_host_small(
+        small_fasta, small_records, small_want)
+    del small_want
     by_path["staged -m 1 MB"] = phase_mmap_small(small_fasta, small_cpu)
     (by_path["staged 64 MB"], by_path[f"staged --chunk-mb {CHUNK_MB}"],
-     whole_pre, whole) = phase_staged_main(fasta64, C.shape[0],
-                                           result_files(mono_res))
+     whole_pre, whole, staged_info) = phase_staged_main(
+         fasta64, C.shape[0], result_files(mono_res))
+    by_path["merge_pfp 64 MB"] = phase_merge_main(fasta64, whole_pre, whole)
+    phase_host_assembly_main(whole_pre, whole, staged_info)
     by_path["staged -m 64 MB"] = phase_mmap_main(fasta64, whole_pre, whole)
     os.remove(fasta64)
     del C, mono_res, whole

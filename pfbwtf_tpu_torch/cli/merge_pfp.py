@@ -1,0 +1,58 @@
+"""merge_pfp CLI of the port (src/merge_pfp.cpp:22-72 flag surface):
+
+    python -m pfbwtf_tpu_torch.cli.merge_pfp [options] <prefix>...
+
+Merges saved parses (a prefix with no .dict/.parse is read as a FASTA)
+into one parse and writes its .dict/.occ/.parse/.n[/.docs], and with
+``--parse-bwt`` its .bwlast/.ilist[/.bwsai].  The rescan (kernel K1), the
+dedup and the parse-BWT run on the card (``device``); ``-t`` is accepted
+and changes nothing, as in pfbwtf_tpu.
+"""
+
+import argparse
+import sys
+import time
+
+from ..io import formats
+from ..ops.parse import ParserParams
+from ..parallel.merge import merge_parse_prefixes
+from ..pipeline import save_parse_bwt, save_parser
+from ..utils.errors import PfbwtError
+
+
+def main(argv=None, device="cuda", info: dict = None):
+    """``info`` receives merge_parse_prefixes's keys, parse_bwt_s and
+    write_s (every file written)."""
+    ap = argparse.ArgumentParser(prog="merge_pfp")
+    ap.add_argument("prefixes", nargs="+")
+    ap.add_argument("-o", "--output", default="out")
+    ap.add_argument("-w", "--window-size", type=int, default=10, dest="w")
+    ap.add_argument("-p", "--mod-val", type=int, default=100, dest="p")
+    ap.add_argument("-t", "--threads", type=int, default=1)
+    ap.add_argument("-d", "--docs", action="store_true")
+    ap.add_argument("-s", "--sai", action="store_true")
+    ap.add_argument("--parse-bwt", action="store_true")
+    ap.add_argument("--u32", action="store_true")
+    args = ap.parse_args(argv)
+    dtype = formats.U32 if args.u32 else formats.U64
+    params = ParserParams(
+        w=args.w, p=args.p, get_sai=args.sai, store_docs=args.docs
+    )
+    info = {} if info is None else info
+    try:
+        res = merge_parse_prefixes(args.prefixes, params, device=device,
+                                   info=info)
+        t0 = time.perf_counter()
+        save_parser(res, args.output, dtype)
+        info["write_s"] = time.perf_counter() - t0
+        if args.parse_bwt:
+            save_parse_bwt(res, args.output, dtype, sa=args.sai,
+                           device=device, info=info)
+    except PfbwtError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -27,7 +27,8 @@ and uint64 in the 64-bit build (pfbwt-f64, the default); callers pass
 ``dtype``.
 """
 
-from typing import Sequence
+import os
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -79,6 +80,10 @@ def write_parse_ranks(path: str, ranks):
     write_uint(path, ranks, U32)
 
 
+def read_parse_ranks(path: str) -> np.ndarray:
+    return read_uint(path, U32)
+
+
 def write_n(path: str, n: int):
     with open(path, "w") as f:
         f.write(f"{n}\n")
@@ -93,3 +98,21 @@ def write_docs(path: str, names: Sequence[str], starts: Sequence[int]):
     with open(path, "w") as f:
         for name, start in zip(names, starts):
             f.write(f"{name} {start}\n")
+
+
+def read_docs(path: str) -> Tuple[List[str], List[int]]:
+    names, starts = [], []
+    with open(path) as f:
+        for line in f:
+            if not line.strip():
+                continue
+            name, start = line.rsplit(None, 1)
+            names.append(name)
+            starts.append(int(start))
+    return names, starts
+
+
+def parse_files_exist(prefix: str) -> bool:
+    """Checkpoint-existence probe (pfbwt_io.hpp:258-263)."""
+    return (os.path.exists(prefix + ".dict")
+            and os.path.exists(prefix + ".parse"))

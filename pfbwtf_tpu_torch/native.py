@@ -1,13 +1,16 @@
 """ctypes loader of the host C++ kernel ``native/sais.cpp``: the host
-dedup's byte-lex substring ranks (``rank_substrings``) and, for the staged
--m assembly's dict-scale layout, the generalized dict suffix array with its
-LCP (``sais_int_lcp32`` / ``sais_int_lcp``, the gsacak(SA, LCP) role).
+dedup's byte-lex substring ranks (``rank_substrings``); for the host
+parse-BWT the SA of an integer sequence (``sais_int``, the sacak_int
+role); and, for the dict-scale layout of the host and staged -m
+assemblies, the generalized dict suffix array with its LCP
+(``sais_int_lcp32`` / ``sais_int_lcp``, the gsacak(SA, LCP) role).
 
 The library is built with g++ at first use into
 ``build/pfbwtf_tpu_torch/libsais-<hash>.so`` at the repository root (the
 hash covers the source and the flags), never beside the source.  A
 missing compiler or a failed build makes ``available()`` false, and the
-host dedup (ops/parse._dedup_and_rank) and the dict suffix layout
+host dedup (ops/parse._dedup_and_rank), the parse SA
+(ops/parse_bwt._parse_sa_host) and the dict suffix layout
 (ops/bwt.suffix_layout) take their numpy paths.
 """
 
@@ -63,6 +66,9 @@ def load() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_int64),
             ctypes.POINTER(ctypes.c_int64),
         ]
+        lib.sais_int.restype = ctypes.c_int
+        lib.sais_int.argtypes = [ctypes.POINTER(ctypes.c_int64)] * 2 + [
+            ctypes.c_int64] * 2
         for name, ct in (("sais_int_lcp", ctypes.c_int64),
                          ("sais_int_lcp32", ctypes.c_int32)):
             fn = getattr(lib, name)
@@ -103,6 +109,32 @@ def rank_substrings_native(T: np.ndarray, starts: np.ndarray,
     if rc != 0:
         raise PfbwtError(f"rank_substrings failed with code {rc}")
     return ranks, int(nd.value)
+
+
+def suffix_array_ints_native(seq: np.ndarray) -> np.ndarray:
+    """SA of an int sequence with a unique 0 terminator (sacak_int role)."""
+    lib = load()
+    s = np.ascontiguousarray(np.asarray(seq, dtype=np.int64))
+    n = s.shape[0]
+    sa = np.empty(n, dtype=np.int64)
+    K = int(s.max()) + 1 if n else 1
+    rc = lib.sais_int(s.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                      sa.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                      n, K)
+    if rc != 0:
+        raise PfbwtError(f"sais_int failed with code {rc}")
+    return sa
+
+
+def dict_suffix_sort_native(dict_flat: np.ndarray):
+    """Generalized dict suffix order (gsacak role), without the LCP, over
+    the symbol remapping of ops/suffix_np.dict_initial_symbols_np.
+    Returns (sa, word_id, suf_len, dwords)."""
+    from .ops.suffix_np import dict_initial_symbols_np
+
+    sym, word_id, suf_len, dwords = dict_initial_symbols_np(dict_flat)
+    sa = suffix_array_ints_native(sym.astype(np.int64))
+    return sa, word_id, suf_len, dwords
 
 
 def dict_suffix_sort_lcp_native(dict_flat: np.ndarray):

@@ -1,6 +1,19 @@
 """The final BWT result as the host receives it, the run-length sampling
-that completes it on the host, and the host's dict-scale suffix layout of
-the staged -m assembly (ops/bwt_mmap.assemble_bwt_stream)."""
+that completes it on the host, the host's dict-scale suffix layout
+(shared by the staged -m assembly, ops/bwt_mmap.assemble_bwt_stream), and
+the whole final-BWT assembly on the host (pfbwtf_tpu/ops/bwt.py), which
+engine.assemble_bwt runs with the ``numpy`` backend.
+
+The assembly is one flat sort: every output position is a pair (dict
+suffix s longer than w, parse-BWT position j of the word owning s), n+1
+pairs in all, emitted in (suffix group, j) order (pfbwt.hpp:97-194).  Per
+emission (pfbwt.hpp:116-181, pfbwt-f.cpp:298-320):
+
+  offset 0             -> char = bwlast[j]
+  dict position == 1   -> char = 0 (the leading Dollar stands for the EOS)
+  else                 -> char = dict[pos-1]
+  sa = bwsai[j] - suf_len   (output index 0 is written as n)
+"""
 
 from dataclasses import dataclass
 from typing import Optional
@@ -90,3 +103,67 @@ def suffix_layout(dict_flat, w, occs, small_hint=True, workspace=None):
         (np.ones(1, idt), (1 + np.cumsum(occs, dtype=np.int64)[:-1]).astype(idt))
     )
     return sa_kept, gid, u, suf_len[sa_kept], seg_start, idt
+
+
+def _emissions(dict_flat, w, occs, ilist):
+    """Sorted dict suffixes and their emission layout.
+
+    Returns (sa_kept, gid, word_of_suffix, suf_len_kept, E_suffix, E_j).
+
+    Index arrays are int32 when sizes allow (numpy's 64-bit fancy
+    indexing is far slower than its 32-bit one), as in pfbwtf_tpu."""
+    ilist = np.asarray(ilist)
+    sa_kept, gid, u, suf_len_kept, seg_start, idt = suffix_layout(
+        dict_flat, w, occs, small_hint=ilist.shape[0] < 2**31 - 8)
+    occs = np.asarray(occs).astype(idt)
+    counts = occs[u]
+    E_suffix = np.repeat(np.arange(sa_kept.shape[0], dtype=idt), counts)
+    # within-suffix occurrence index 0..count-1
+    first = np.concatenate(
+        (np.zeros(1, idt), np.cumsum(counts, dtype=np.int64)[:-1].astype(idt))
+    )
+    within = np.arange(E_suffix.shape[0], dtype=idt) - np.repeat(first, counts)
+    E_j = ilist.astype(idt)[np.repeat(seg_start[u], counts) + within]
+    return sa_kept, gid, u, suf_len_kept, E_suffix, E_j
+
+
+def assemble_bwt(dict_flat: np.ndarray, w: int, occs: np.ndarray,
+                 bwlast: np.ndarray, ilist: np.ndarray,
+                 bwsai: Optional[np.ndarray], n: int, want_sa: bool = False,
+                 want_rssa: bool = False, sa_dtype=np.uint64) -> BWTResult:
+    """The final BWT (and SA, run-length samples) on the host from the
+    checkpoint arrays: the emission layout, one lexsort by (suffix group,
+    parse-BWT position), and the per-emission gathers."""
+    sa_kept, gid, _, suf_len_kept, E_suffix, E_j = _emissions(
+        dict_flat, w, occs, ilist)
+    total = E_j.shape[0]
+    assert total == n + 1, f"emission count {total} != n+1 ({n + 1})"
+    idt = E_j.dtype
+    # final order: (suffix group, parse-BWT position)
+    order = np.lexsort((E_j, gid[E_suffix])).astype(idt)
+    s_ord = E_suffix[order]
+    j_ord = E_j[order]
+    pos_ord = sa_kept[s_ord]  # dict positions of each emission's suffix
+    # offset 0: the suffix starts at 0 or right after EndOfWord/EndOfDict
+    dict_flat = np.asarray(dict_flat, dtype=np.uint8)
+    is_word_start = np.concatenate(([True], dict_flat[:-1] <= 1))
+    bwtc = np.where(
+        is_word_start[pos_ord],
+        np.asarray(bwlast, dtype=np.uint8)[j_ord],
+        np.where(pos_ord == 1, np.uint8(0),
+                 dict_flat[np.maximum(pos_ord - 1, 0)]),
+    ).astype(np.uint8)
+
+    sa_vals = None
+    if want_sa or want_rssa:
+        bwsai = np.asarray(bwsai)
+        if idt == np.int32 and n < 2**32 - 2:
+            # 32-bit gather path (values fit: sa <= n); widen at the end
+            sa32 = (bwsai.astype(np.uint32)[j_ord]
+                    - suf_len_kept[s_ord].astype(np.uint32))
+            sa_vals = sa32.astype(np.uint64)
+        else:
+            sa_vals = (bwsai.astype(np.uint64)[j_ord]
+                       - suf_len_kept[s_ord].astype(np.uint64))
+        sa_vals[0] = np.uint64(n)
+    return bwt_result(bwtc, sa_vals, want_sa, want_rssa, sa_dtype)

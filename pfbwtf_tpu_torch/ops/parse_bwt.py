@@ -2,7 +2,8 @@
 pfparser.hpp:380-467).
 
 * The SA of parse_ranks + [0] terminator (the sacak_int call, :425) comes
-  from the doubling in ops/suffix.py.
+  from the doubling in ops/suffix.py on the device, and from the native
+  SA-IS kernel (else the numpy doubling) on the host.
 * The SA -> bwlast/bwsai permutation (:431-451) is two gathers with the
   reference's wrap conventions: SA[0]=n -> last[n-2]/sai[n-1]; SA[i]==0 ->
   (0, 0); SA[i]==1 -> last wraps to last[n-1].
@@ -11,7 +12,8 @@ pfparser.hpp:380-467).
 
 ``parse_bwt_core`` is the device body shared with the fused build;
 ``bwt_of_parse_device`` is the staged build's stage 2 (the ``.bwlast``,
-``.ilist`` and ``.bwsai`` files).
+``.ilist`` and ``.bwsai`` files) on a device, and ``bwt_of_parse`` the
+same stage on the host (engine.parse_bwt with the ``numpy`` backend).
 """
 
 from dataclasses import dataclass
@@ -19,9 +21,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import native
 from ..utils.device import resolve_device
 from ..utils.errors import die
 from .suffix import _doubling
+from .suffix_np import suffix_array_ints_np
 
 _BIG = (2**63 - 1) // 2
 
@@ -89,3 +93,44 @@ def bwt_of_parse_device(parse_ranks: np.ndarray, last: np.ndarray,
                else np.zeros(0, dtype=np.uint64)),
         bwt_sym=sym.cpu().numpy(),
     )
+
+
+def _parse_sa_host(seq):
+    """SA of the parse-rank sequence: native SA-IS when available, else
+    numpy doubling."""
+    if native.available():
+        return native.suffix_array_ints_native(seq)
+    return suffix_array_ints_np(seq)
+
+
+def bwt_of_parse(parse_ranks: np.ndarray, last: np.ndarray, sai: np.ndarray,
+                 get_sai: bool = True, sa_fn=None) -> ParseBWT:
+    """The parse-BWT on the host (pfbwtf_tpu/ops/parse_bwt.py::
+    bwt_of_parse): the parse SA, the wrap-gather permutes, and the stable
+    argsort of the parse-BWT symbols that gives the ilist."""
+    if sa_fn is None:
+        sa_fn = _parse_sa_host
+    parse_ranks = np.asarray(parse_ranks, dtype=np.int64)
+    n = parse_ranks.shape[0]
+    if n == 1:
+        die("error: only one dict word total. Re-run with a smaller p modulus")
+    seq = np.concatenate((parse_ranks, np.zeros(1, dtype=np.int64)))
+    SA = np.asarray(sa_fn(seq), dtype=np.int64)  # length n+1, SA[0] == n
+    assert SA[0] == n, "parse SA must start with the terminator suffix"
+
+    last = np.asarray(last)
+    sai = np.asarray(sai, dtype=np.uint64)
+    zero = SA == 0
+    # bwlast: preceding-phrase "last" char with the reference's wrap quirks
+    bwlast = np.where(zero, np.uint8(0), last[(SA - 2) % n])
+    if get_sai:
+        bwsai = np.where(zero, np.uint64(0), sai[(SA - 1) % n])
+    else:
+        bwsai = np.zeros(0, dtype=np.uint64)
+    # parse-BWT symbols: phrase rank preceding each suffix (0 for EOS)
+    bwt_sym = np.where(zero, 0, parse_ranks[(SA - 1) % n])
+    bwt_sym[0] = parse_ranks[n - 1]
+    # ilist = stable counting sort by symbol (== ilist[F[sym]++] = i)
+    ilist = np.argsort(bwt_sym, kind="stable").astype(np.int64)
+    return ParseBWT(bwlast=bwlast.astype(np.uint8), ilist=ilist, bwsai=bwsai,
+                    bwt_sym=bwt_sym)

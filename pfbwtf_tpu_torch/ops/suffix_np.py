@@ -1,10 +1,12 @@
-"""Dict suffix sorting and suffix-equality groups on the host, in numpy
+"""Suffix sorting and dict suffix-equality groups on the host, in numpy
 (the numpy reference path of pfbwtf_tpu/ops/suffix.py).
 
-The staged -m assembly lays out the dict suffixes on the host
-(ops/bwt.suffix_layout): the native SA-IS kernel with its LCP where it
-builds (native.py), else the prefix doubling and the polynomial-hash
-equality groups below.
+The host assembly and the staged -m assembly lay out the dict suffixes
+on the host (ops/bwt.suffix_layout): the native SA-IS kernel with its LCP
+where it builds (native.py), else the prefix doubling and the
+polynomial-hash equality groups below.  The host parse-BWT
+(ops/parse_bwt.bwt_of_parse) and simplebwt take the SA of an integer
+sequence from ``suffix_array_ints_np`` where the native kernel is absent.
 """
 
 import numpy as np
@@ -38,6 +40,11 @@ def _doubling_np(rank: np.ndarray) -> np.ndarray:
         if new_rank[-1] == n - 1:
             return order
         k *= 2
+
+
+def suffix_array_ints_np(seq: np.ndarray) -> np.ndarray:
+    """SA of an integer sequence whose last element is the unique minimum."""
+    return _doubling_np(np.asarray(seq, dtype=np.int64))
 
 
 def dict_initial_symbols_np(dict_flat: np.ndarray):

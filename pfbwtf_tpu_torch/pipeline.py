@@ -5,7 +5,9 @@ writes .dict/.occ/.parse/.n[/.docs] and .bwlast/.ilist[/.bwsai]
 (pfbwt-f.cpp:209-245), and ``run_pfbwt`` resumes from exactly those files
 (pfbwt-f.cpp:275-349), so the two stages can run in different processes
 (--parse-only / --pfbwt-only), and either may be pfbwtf_tpu's.  Every
-heavy stage runs on ``device``.
+heavy stage runs on ``device``; a ``backend`` of ``"numpy"`` (or the
+PFBWT_* variables, engine.py) moves the parse-BWT and the assembly to the
+host.
 """
 
 import sys
@@ -43,12 +45,13 @@ def save_parser(res: ParseResult, prefix: str, dtype=U64):
 
 
 def save_parse_bwt(res: ParseResult, prefix: str, dtype=U64, sa: bool = True,
-                   device="cuda", info: dict = None):
+                   device="cuda", info: dict = None,
+                   backend: Optional[str] = None):
     """Stage 2 and its files (pfbwt_io.hpp:287-297); ``info`` receives
     parse_bwt_s and the seconds of the writes (write_s, added to)."""
     info = {} if info is None else info
     t0 = time.perf_counter()
-    pb = engine.parse_bwt(res, get_sai=sa, device=device)
+    pb = engine.parse_bwt(res, get_sai=sa, device=device, backend=backend)
     t1 = time.perf_counter()
     formats.write_u8(prefix + "." + EXT.BWLST, pb.bwlast)
     formats.write_uint(prefix + "." + EXT.ILIST, pb.ilist, dtype)
@@ -69,11 +72,13 @@ class PfbwtConfig:
     dtype: np.dtype = U64
     stdout_ext: str = ""  # '-c <ext>': route one output to stdout
     device: str = "cuda"
+    backend: Optional[str] = None  # 'numpy': stage 3 on the host (engine.py)
     mmap: bool = False  # -m: memmap inputs + streamed bounded-memory stage 3
 
 
 def run_parser(in_fname: str, output: str, params: ParserParams, dtype=U64,
-               device="cuda", info: dict = None) -> int:
+               device="cuda", info: dict = None,
+               backend: Optional[str] = None) -> int:
     """Stages 1 and 2: parse, write the checkpoint files; returns n.
     ``info`` receives engine.parse_fasta's keys, parse_bwt_s and write_s."""
     info = {} if info is None else info
@@ -85,7 +90,7 @@ def run_parser(in_fname: str, output: str, params: ParserParams, dtype=U64,
         info["write_s"] = time.perf_counter() - t0
     with task_timer("ranking and bwt-ing parse and processing last-chars"):
         save_parse_bwt(res, output, dtype, sa=params.get_sai, device=device,
-                       info=info)
+                       info=info, backend=backend)
     if params.trim_non_acgt:
         # the reference writes the (always empty) non-ACGT run table when
         # trimming is asked for (pfbwt-f.cpp:238-240; the trim path is
@@ -96,7 +101,8 @@ def run_parser(in_fname: str, output: str, params: ParserParams, dtype=U64,
 
 def run_parser_chunked(in_fname: str, output: str, params: ParserParams,
                        chunk: int, dtype=U64, device="cuda",
-                       info: dict = None) -> int:
+                       info: dict = None,
+                       backend: Optional[str] = None) -> int:
     """Stages 1 and 2 with the bounded-memory parse (``--chunk-mb``): the
     cut scan in ``chunk``-code pieces on ``device``, the dedup on the
     host, then the files of run_parser; returns n.  ``info`` receives
@@ -110,7 +116,7 @@ def run_parser_chunked(in_fname: str, output: str, params: ParserParams,
     save_parser(res, output, dtype)
     info["write_s"] = time.perf_counter() - t0
     save_parse_bwt(res, output, dtype, sa=params.get_sai, device=device,
-                   info=info)
+                   info=info, backend=backend)
     return res.n
 
 
@@ -122,7 +128,8 @@ def _out_handle(cfg: PfbwtConfig, ext: str):
 
 def run_pfbwt(cfg: PfbwtConfig, n: Optional[int] = None, info: dict = None):
     """Stage 3: load the checkpoint files, assemble the final BWT on
-    cfg.device, write .bwt[/.sa][/.ssa/.esa].  ``info`` receives
+    cfg.device (or on the host: cfg.backend, engine.assemble_bwt), write
+    .bwt[/.sa][/.ssa/.esa].  ``info`` receives
     assembly_s and the seconds of the reads and writes (write_s, added
     to); with cfg.mmap, _run_pfbwt_stream's keys instead."""
     info = {} if info is None else info
@@ -157,7 +164,7 @@ def run_pfbwt(cfg: PfbwtConfig, n: Optional[int] = None, info: dict = None):
             dict_flat, cfg.w, occs.astype(np.int64), bwlast,
             ilist.astype(np.int64), bwsai, n,
             want_sa=cfg.sa, want_rssa=cfg.rssa, sa_dtype=cfg.dtype,
-            device=cfg.device,
+            device=cfg.device, backend=cfg.backend,
         )
     t2 = time.perf_counter()
     bwt_fp = _out_handle(cfg, EXT.BWT)

@@ -13,7 +13,9 @@ The SA->MA permute consumes the SA array directly instead of a unix pipe
 
 The parse (kernel K1's cut scan), the parse-BWT, the assembly and the
 SA->MA permute run on ``cfg.device``: the staged stages of engine.py, or
-with ``cfg.fused`` the fused build of ops/fused.py.
+with ``cfg.fused`` the fused build of ops/fused.py.  A ``cfg.backend`` of
+``"numpy"`` (or the PFBWT_* variables, engine.py) moves the staged
+parse-BWT and assembly to the host.
 
 Haplotype order matches the reference: [ref] + [sample h0, sample h1, ...]
 (vcf_to_bwt.py:191-192).
@@ -59,6 +61,7 @@ class VcfToBwtConfig:
     threads: int = 1
     dtype: np.dtype = formats.U64
     device: str = "cuda"
+    backend: Optional[str] = None  # 'numpy': stages 2-3 on the host
     contigs: Optional[List[str]] = None  # restrict (index-seek if .csi/.tbi)
     # the fused build (ops/fused.py) in place of the staged stages; it
     # writes no .parse/.dict checkpoint files (no host-visible parse)
@@ -249,7 +252,8 @@ def _staged_stages(cfg, log, all_records, params, want_sa_vals):
         save_parser(res, cfg.output, cfg.dtype)
 
     with task_timer("bwt of parse"):
-        pb = engine.parse_bwt(res, get_sai=True, device=cfg.device)
+        pb = engine.parse_bwt(res, get_sai=True, device=cfg.device,
+                              backend=cfg.backend)
     if cfg.keep_parse:
         formats.write_u8(cfg.output + ".bwlast", pb.bwlast)
         formats.write_uint(cfg.output + ".ilist", pb.ilist, cfg.dtype)
@@ -270,6 +274,7 @@ def _staged_stages(cfg, log, all_records, params, want_sa_vals):
             want_rssa=cfg.rssa,
             sa_dtype=cfg.dtype,
             device=cfg.device,
+            backend=cfg.backend,
         )
 
 

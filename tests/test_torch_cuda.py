@@ -1,6 +1,7 @@
 """Kernels K1-K4, the fused and staged builds (the staged -m included),
-the device SA->MA permute and vcf_to_bwt on a CUDA card against the plain
-PyTorch versions and the CPU run.  Marked ``cuda``: each test
+the device SA->MA permute, vcf_to_bwt and merge_pfp on a CUDA card
+against the plain PyTorch versions and the CPU run, and the host backend
+of stages 2 and 3 against the card's.  Marked ``cuda``: each test
 skips when no card is present.  On the card:
 ``python -m pytest --noconftest -q tests/test_torch_cuda.py``."""
 
@@ -277,3 +278,67 @@ def test_vcf_to_bwt_card_equals_cpu(card, tmp_path):
             assert want.exists() == got.exists(), ext
             if want.exists():
                 assert got.read_bytes() == want.read_bytes(), ext
+
+
+def _pan_fasta(path, seed, unit_len, copies, nmut=200):
+    """Mutated copies of one random unit, one record each."""
+    rng = np.random.default_rng(seed)
+    unit = rng.choice(ACGT, size=unit_len)
+    with open(path, "wb") as f:
+        for i in range(copies):
+            hap = unit.copy()
+            pos = rng.integers(0, hap.size, size=nmut)
+            hap[pos] = ACGT[rng.integers(0, 4, size=nmut)]
+            f.write(b">h%d\n" % i + hap.tobytes() + b"\n")
+    return str(path)
+
+
+def test_merge_pfp_card_equals_cpu(card, tmp_path):
+    """merge_pfp -s --parse-bwt on the card at 1 MB (three shards parsed
+    on the card, a fourth given as a FASTA): one K1 launch for the merge,
+    and the files of its CPU run and of the whole staged build."""
+    from pfbwtf_tpu_torch.cli.merge_pfp import main as merge_main
+
+    shards = [_pan_fasta(tmp_path / f"s{i}.fa", 20 + i, 1 << 17, 2)
+              for i in range(4)]
+    whole = tmp_path / "whole.fa"
+    whole.write_bytes(b"".join(open(s, "rb").read() for s in shards))
+    assert cli_main([str(whole), "-o", str(tmp_path / "w"), "-s",
+                     "--parse-only"]) == 0
+    args = []
+    for i, s in enumerate(shards[:3]):
+        assert cli_main([s, "-o", str(tmp_path / f"p{i}"), "-s",
+                         "--parse-only"]) == 0
+        args.append(str(tmp_path / f"p{i}"))
+    args.append(shards[3])
+    before = k1.launches
+    assert merge_main([*args, "-o", str(tmp_path / "gpu"), "-s",
+                       "--parse-bwt"]) == 0
+    torch.cuda.synchronize()
+    assert k1.launches == before + 1
+    assert merge_main([*args, "-o", str(tmp_path / "cpu"), "-s",
+                       "--parse-bwt"], device="cpu") == 0
+    for ext in ("dict", "occ", "parse", "n", "bwlast", "ilist", "bwsai"):
+        want = (tmp_path / f"w.{ext}").read_bytes()
+        assert (tmp_path / f"gpu.{ext}").read_bytes() == want, ext
+        assert (tmp_path / f"cpu.{ext}").read_bytes() == want, ext
+
+
+def test_host_backend_equals_device_backend_on_card(card, tmp_path,
+                                                    monkeypatch):
+    """The staged CLI with stages 2 and 3 on the host (PFBWT_BACKEND=numpy,
+    then PFBWT_ASSEMBLE_BACKEND=numpy alone) writes the card's files; K1
+    still runs the cut scan."""
+    fa = _pan_fasta(tmp_path / "in.fa", 30, 1 << 17, 8)
+    for name in ("PFBWT_BACKEND", "PFBWT_ASSEMBLE_BACKEND"):
+        monkeypatch.delenv(name, raising=False)
+    assert cli_main([fa, "-o", str(tmp_path / "dev"), "-s", "-r"]) == 0
+    for name in ("PFBWT_BACKEND", "PFBWT_ASSEMBLE_BACKEND"):
+        monkeypatch.setenv(name, "numpy")
+        before = k1.launches
+        assert cli_main([fa, "-o", str(tmp_path / name), "-s", "-r"]) == 0
+        assert k1.launches == before + 1
+        monkeypatch.delenv(name)
+        for ext in ELEVEN:
+            assert ((tmp_path / f"{name}.{ext}").read_bytes()
+                    == (tmp_path / f"dev.{ext}").read_bytes()), (name, ext)

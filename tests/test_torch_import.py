@@ -69,14 +69,18 @@ NEW_MODULES = (
     "ops.suffix_np", "ops.bwt_mmap", "markers.ma", "markers.ma_dev",
     "markers.mps", "vcf.reader", "vcf.scan", "vcf.scan_worker",
     "vcf.pipeline", "cli.vcf_to_bwt", "cli.vcf_scan", "cli.merge_mps",
-    "cli.mps_to_ma",
+    "cli.mps_to_ma", "parallel.merge", "vcf.filter", "markers.dump",
+    "ops.bwt", "ops.parse_bwt", "cli.merge_pfp", "cli.simplebwt",
+    "cli.consensus", "cli.dump_markers", "cli.readable_sa",
+    "cli.readable_markers", "cli.dump_intfile",
 )
 
 
 @pytest.mark.parametrize("name", NEW_MODULES)
 def test_staged_and_probe_modules_are_checked(name):
     """The AST check above covers the modules of the staged build, the
-    probe and vcf_to_bwt (it walks the package)."""
+    probe, vcf_to_bwt, the merge, the host assembly and the host tools (it
+    walks the package)."""
     path = os.path.join(PKG, *name.split(".")) + ".py"
     assert path in list(_port_sources())
 
@@ -104,6 +108,18 @@ def test_cli_default_device_raises_without_a_card(tmp_path):
     fa.write_bytes(b">x\n" + b"ACGTTGCAAC" * 100 + b"\n")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([str(fa), "-o", str(tmp_path / "o"), "--fused", "-s"])
+
+
+def test_merge_pfp_default_device_raises_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from pfbwtf_tpu_torch.cli.merge_pfp import main
+
+    fa = tmp_path / "x.fa"
+    fa.write_bytes(b">x\n" + b"ACGTTGCAAC" * 100 + b"\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([str(fa), str(fa), "-o", str(tmp_path / "o"), "-s",
+              "--parse-bwt"])
 
 
 @pytest.mark.parametrize("extra", [[], ["--chunk-mb", "1"]])
