@@ -85,7 +85,24 @@ line:
    (marker window 1) against vcf_scan's FASTA and .mps of the same
    haplotype; dump_markers and readable_markers on the .ma, one line a run
    and one a position.
-12. vcf_to_bwt at full width: a 4 MiB reference (contigs of 3 and 1 MiB,
+12. The opt-in engines at 64 MB (after phase 9c): the fused build of
+   phase 5's input once under each of PFBWT_SORT_IMPL=radix,
+   PFBWT_FANOUT=scatter and merge, PFBWT_DICT_KEYS=acgt3,
+   PFBWT_DBL_SUBSET=4 and 8, PFBWT_DBL_INV=scatter and PFBWT_J3_SPLIT=1,
+   each followed by the default build: every run's .bwt/.sa/.ssa/.esa
+   and checksum equal phase 5's, one K1 launch each; seconds, doubling
+   rounds and peak device memory printed.  Then acgt3 on the streamed
+   build, PFBWT_J2_STREAM=1 on it, and the staged build's stage 3 on the
+   card from phase 9's checkpoint files, default, with acgt3 and with
+   PFBWT_EMIT_WIDE=1 (the fused build does not read that one): all give
+   the default's files.
+13. The pod parse at 64 MB through the CLI: pfbwt_f -s -r --shards 4
+   --workers 4 (spawn workers parse the shards on the host), then
+   --workers 1: the eleven files equal phase 9's, one K1 launch in this
+   process (the merge's rescan), the environment unchanged; the split,
+   the shard parses, the merge's rebuild, scan and dedup, the parse-BWT,
+   the assembly and the writes timed, with the peak device memory.
+14. vcf_to_bwt at full width: a 4 MiB reference (contigs of 3 and 1 MiB,
    seed 4323) and 16 phased diploid samples (tests/vcf_gen.random_vcf:
    0.003 sites a base, alt frequency 0.25, 10 % indels), 33 haplotypes,
    about 138 M characters, at w=10, p=100 through the CLI: staged -s -r
@@ -94,7 +111,7 @@ line:
    records, and the card's .ma equals the host permute's over the same
    .sa; scan, parse + BWT and SA->MA seconds, peak device memory, n, r and
    marker runs are printed.
-13. The full size of the streamed path: the 1 GiB pan-genome of
+15. The full size of the streamed path: the 1 GiB pan-genome of
    benchmarks/stream_big.py (32 mutated copies of a 32 MiB unit, SNP rate
    0.001, seed 4321) in checksum-only mode with the default chunk target
    and the automatic J2 switch, which must choose the streamed J2; then
@@ -114,6 +131,7 @@ import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -1079,6 +1097,183 @@ def phase_merge_main(fasta: str, whole_pre: str, whole):
     return launches
 
 
+# phase 12: each opt-in engine of the fused build (PFBWT_EMIT_WIDE is read
+# by the staged build's stage 3 only, and runs there)
+ENGINE_RUNS = (
+    ("PFBWT_SORT_IMPL", "radix"), ("PFBWT_FANOUT", "scatter"),
+    ("PFBWT_FANOUT", "merge"), ("PFBWT_DICT_KEYS", "acgt3"),
+    ("PFBWT_DBL_SUBSET", "4"), ("PFBWT_DBL_SUBSET", "8"),
+    ("PFBWT_DBL_INV", "scatter"), ("PFBWT_J3_SPLIT", "1"),
+)
+ASSEMBLY_RUNS = ((), (("PFBWT_DICT_KEYS", "acgt3"),),
+                 (("PFBWT_EMIT_WIDE", "1"),))
+MAIN_CHECKSUM = 2251810500740011  # phase 5's, the default engines'
+
+
+def fused_engine_run(C, pairs=()):
+    """The 64 MB fused build under the variables ``pairs``, with K1's
+    count set to 0 just before and read just after.  Returns (result,
+    info, launches, seconds, peak bytes)."""
+    import torch
+
+    from pfbwtf_tpu_torch.ops.cuda import hash_scan as k1
+    from pfbwtf_tpu_torch.ops.fused import pfbwt_fused_device
+
+    with mock.patch.dict(os.environ, dict(pairs)):
+        fresh_memory()
+        k1.launches = 0
+        t0 = time.perf_counter()
+        res, info = pfbwt_fused_device(C, W, P, device="cuda", want_sa=True,
+                                       want_rssa=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return (res, info, k1.launches, secs,
+            torch.cuda.max_memory_allocated())
+
+
+def phase_engines_main(C, mono_res, whole_pre: str, whole):
+    """Phase 12: the opt-in engines at 64 MB.  The fused build once under
+    each variable of ENGINE_RUNS, each followed by the default build in
+    the same call: .bwt/.sa/.ssa/.esa and the checksum equal the default
+    phase 5 build's, one K1 launch each; seconds, doubling rounds and peak
+    device memory printed.  Then PFBWT_DICT_KEYS=acgt3 on the streamed
+    build, PFBWT_J2_STREAM=1 on it (the streamed J2 chosen by the
+    variable), and the staged build's device assembly (stage 3 from
+    phase 9's checkpoint files) default, with acgt3 and with
+    PFBWT_EMIT_WIDE=1: every one gives the default's files."""
+    import torch
+
+    from pfbwtf_tpu_torch.io import formats
+    from pfbwtf_tpu_torch.ops.bwt_dev import assemble_bwt_dev
+
+    launches = {}
+
+    def line(label, res, info, k1n, secs, peak):
+        check(k1n == 1, f"{label}: {k1n} K1 launches, not 1")
+        check(info["checksum"] == MAIN_CHECKSUM,
+              f"{label}: checksum {info['checksum']}, not {MAIN_CHECKSUM}")
+        for field in ("bwt", "sa", "ssa", "esa"):
+            check(np.array_equal(getattr(res, field),
+                                 getattr(mono_res, field)),
+                  f"{label}: .{field} differs from the default build")
+        rounds = info["rounds"]
+        print(f"{label}: {secs:.4f} s (J2 {info['j2_s']:.4f}, J3 "
+              f"{info['j3_s']:.4f}, download + sampling "
+              f"{info['fetch_s']:.4f}); dict doubling rounds "
+              f"{rounds['dict_sa']} ({rounds['dict_sa_subset']} subset), "
+              f"parse rounds {rounds['parse_sa']}; peak "
+              f"device memory {peak} bytes ({peak / 2**30:.2f} GiB); K1 "
+              f"launches {k1n}; checksum {info['checksum']}; files equal the "
+              "default build")
+
+    for var, value in ENGINE_RUNS:
+        label = f"64 MB fused {var}={value}"
+        out = fused_engine_run(C, ((var, value),))
+        line(label, *out)
+        launches[label] = out[2]
+        del out
+        line(f"64 MB fused default (after {var}={value})",
+             *fused_engine_run(C))
+
+    default_files = result_files(mono_res)
+    for var, value in (("PFBWT_DICT_KEYS", "acgt3"),
+                       ("PFBWT_J2_STREAM", "1")):
+        label = f"64 MB fused -m {var}={value}"
+        with mock.patch.dict(os.environ, {var: value}):
+            files, out, info, k1n, secs, peak = stream_build(C)
+        check(k1n == 1, f"{label}: {k1n} K1 launches, not 1")
+        check(files == default_files,
+              f"{label}: the files differ from the default fused build")
+        if var == "PFBWT_J2_STREAM":
+            check(info["j2_stream"], f"{label}: the monolithic J2 ran")
+        else:
+            check(info["alphabet"] == "acgt3", f"{label}: byte keys ran")
+        print(f"{label}: {secs:.4f} s ({stage_line(info)}); peak device "
+              f"memory {peak} bytes ({peak / 2**30:.2f} GiB); K1 launches "
+              f"{k1n}; files equal the default fused build")
+        launches[label] = k1n
+
+    arrays = (
+        formats.read_uint(whole_pre + ".dict", np.uint8), W,
+        formats.read_uint(whole_pre + ".occ", formats.U64).astype(np.int64),
+        formats.read_uint(whole_pre + ".bwlast", np.uint8),
+        formats.read_uint(whole_pre + ".ilist", formats.U64).astype(np.int64),
+        formats.read_uint(whole_pre + ".bwsai", formats.U64),
+        formats.read_n(whole_pre + ".n"),
+    )
+    for pairs in ASSEMBLY_RUNS:
+        label = ("64 MB staged stage 3 on the card "
+                 + (" ".join(f"{k}={v}" for k, v in pairs) or "default"))
+        with mock.patch.dict(os.environ, dict(pairs)):
+            fresh_memory()
+            t0 = time.perf_counter()
+            res = assemble_bwt_dev(*arrays, want_sa=True, want_rssa=True,
+                                   device="cuda")
+            secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        got = result_files(res)
+        check(all(got[k] == whole[k] for k in got),
+              f"{label}: .bwt/.sa/.ssa/.esa differ from phase 9's")
+        print(f"{label}: assembly {secs:.4f} s (upload, download and run "
+              f"sampling included); peak device memory {peak} bytes "
+              f"({peak / 2**30:.2f} GiB); .bwt/.sa/.ssa/.esa equal phase 9's")
+        del res, got
+    return launches
+
+
+POD_SHARDS = 4
+
+
+def phase_pod_main(fasta: str, whole):
+    """Phase 13: the pod parse at 64 MB through the CLI, pfbwt_f -s -r
+    --shards 4 with --workers 4 (a spawn pool) and then --workers 1 (in
+    this process): all eleven files equal phase 9's, one K1 launch in
+    this process (the merge's rescan; the workers scan on the host), the
+    environment unchanged; seconds by stage and peak device memory."""
+    import torch
+
+    from pfbwtf_tpu_torch.cli.pfbwt_f import main as cli_main
+    from pfbwtf_tpu_torch.ops.cuda import hash_scan as k1
+
+    out_dir = os.path.dirname(fasta)
+    launches = {}
+    for workers in (POD_SHARDS, 1):
+        prefix = os.path.join(out_dir, f"pan64_pod{workers}")
+        env = dict(os.environ)
+        fresh_memory()
+        info = {}
+        k1.launches = 0
+        t0 = time.perf_counter()
+        rc = cli_main([fasta, "-o", prefix, "-s", "-r", "--shards",
+                       str(POD_SHARDS), "--workers", str(workers)], info=info)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k1n = k1.launches
+        peak = torch.cuda.max_memory_allocated()
+        label = f"64 MB --shards {POD_SHARDS} --workers {workers}"
+        check(rc == 0, f"{label}: exit code {rc}")
+        check(k1n == 1, f"{label}: {k1n} K1 launches in this process, not 1")
+        check(dict(os.environ) == env, f"{label}: the environment changed")
+        check(read_files(prefix) == whole,
+              f"{label}: the eleven files differ from the staged build's")
+        shard_s = ", ".join(f"{s:.4f}" for s in info["shard_s"])
+        print(f"{label}: {secs:.4f} s end to end (split {info['split_s']:.4f},"
+              f" shard parses {info['shards_s']:.4f} [each {shard_s}], merge "
+              f"rebuild {info['rebuild_s']:.4f}, scan {info['scan_s']:.4f}, "
+              f"dedup {info['dedup_s']:.4f}, parse-BWT "
+              f"{info['parse_bwt_s']:.4f}, assembly {info['assembly_s']:.4f}, "
+              f"writes {info['write_s']:.4f} s); peak device memory {peak} "
+              f"bytes ({peak / 2**30:.2f} GiB); K1 launches in this process "
+              f"{k1n}; the eleven files equal the staged build's")
+        launches[label] = k1n
+        remove_files(prefix)
+        for i in range(POD_SHARDS):
+            remove_files(f"{prefix}.shard{i}", ("dict", "occ", "parse", "n"))
+            if os.path.exists(f"{prefix}.shard{i}.fa"):
+                os.remove(f"{prefix}.shard{i}.fa")
+    return launches
+
+
 def phase_host_assembly_main(whole_pre: str, whole, dev_info):
     """Phase 9c: stage 3 on the host at full width, the resume of phase
     9's checkpoint files (--pfbwt-only -s -r through pipeline.run_pfbwt)
@@ -1166,7 +1361,6 @@ _RESUME_CHILD = r"""
 import json, os, sys, threading, time
 sys.path.insert(0, sys.argv[1])
 import torch
-from pfbwtf_tpu_torch import pipeline
 from pfbwtf_tpu_torch.cli.pfbwt_f import main
 def rss():
     try:
@@ -1187,10 +1381,8 @@ def sample():
 sampler = threading.Thread(target=sample, daemon=True)
 sampler.start()
 info = {}
-run_pfbwt = pipeline.run_pfbwt
-pipeline.run_pfbwt = lambda cfg, n=None: run_pfbwt(cfg, n, info)
 t0 = time.perf_counter()
-rc = main(["-o", sys.argv[2], "--pfbwt-only", "-m", "-s", "-r"])
+rc = main(["-o", sys.argv[2], "--pfbwt-only", "-m", "-s", "-r"], info=info)
 torch.cuda.synchronize()
 done.set()
 sampler.join()
@@ -1590,7 +1782,12 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from pfbwtf_tpu_torch.ops.parse import ParserParams, build_stream
     from pfbwtf_tpu_torch.ops.fused import _bucket
+    from pfbwtf_tpu_torch.utils.malloc_tuning import tune_malloc
     from pfbwtf_tpu_torch.utils.tables import ntoa_codes
+
+    # every phase runs under the allocator that the build CLIs set, so
+    # host seconds compare across phases whatever their order
+    tune_malloc()
 
     t_start = time.perf_counter()
     smi = phase_environment()
@@ -1625,6 +1822,8 @@ def main() -> int:
          fasta64, C.shape[0], result_files(mono_res))
     by_path["merge_pfp 64 MB"] = phase_merge_main(fasta64, whole_pre, whole)
     phase_host_assembly_main(whole_pre, whole, staged_info)
+    by_path.update(phase_engines_main(C, mono_res, whole_pre, whole))
+    by_path.update(phase_pod_main(fasta64, whole))
     by_path["staged -m 64 MB"] = phase_mmap_main(fasta64, whole_pre, whole)
     os.remove(fasta64)
     del C, mono_res, whole

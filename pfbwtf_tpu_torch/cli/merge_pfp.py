@@ -18,6 +18,7 @@ from ..ops.parse import ParserParams
 from ..parallel.merge import merge_parse_prefixes
 from ..pipeline import save_parse_bwt, save_parser
 from ..utils.errors import PfbwtError
+from ..utils.malloc_tuning import tune_malloc
 
 
 def main(argv=None, device="cuda", info: dict = None):
@@ -34,6 +35,7 @@ def main(argv=None, device="cuda", info: dict = None):
     ap.add_argument("--parse-bwt", action="store_true")
     ap.add_argument("--u32", action="store_true")
     args = ap.parse_args(argv)
+    tune_malloc()  # numpy temporaries reuse the heap (malloc_tuning.py)
     dtype = formats.U32 if args.u32 else formats.U64
     params = ParserParams(
         w=args.w, p=args.p, get_sai=args.sai, store_docs=args.docs

@@ -8,16 +8,21 @@ Two builds run on the CUDA card:
 - the staged build (the default; ``--device`` is accepted and changes
   nothing): parse, parse-BWT and final BWT with the reference's
   checkpoint files, ``--parse-only`` / ``--pfbwt-only`` to run one half,
-  ``--chunk-mb N`` for the bounded-memory parse, ``--print-docs``, and
-  ``-m`` for the streamed bounded-memory final stage;
+  ``--shards N`` (N > 1) for the pod parse (N record-aligned shards
+  parsed on the host by ``--workers K`` processes, K = N by default, and
+  merged on the card), else ``--chunk-mb N`` for the bounded-memory
+  parse, ``--print-docs``, and ``-m`` for the streamed bounded-memory
+  final stage;
 - the fused whole-pipeline build (``--fused``), with its streamed form
   (``--fused -m``) for inputs past the one-program memory ceiling.
 
 As in pfbwtf_tpu, ``--shards`` 0 or 1 and a ``--workers`` count without
-``--shards`` change nothing.  Every other mode exits 1 with a message:
-``--fused`` with a staged-only flag or ``--workers``, ``--mesh`` and
-``--shards`` > 1 (the multi-device modules are not ported).  ``--u32``
-selects the 32-bit build's file widths; the default is 64-bit.
+``--shards`` change nothing, and ``--fused`` ignores the staged build's
+flags (``--chunk-mb``, ``--parse-only``, ``--pfbwt-only``,
+``--print-docs``, ``--shards``, ``--workers``); ``--parse-only`` with
+``--pfbwt-only`` exits 1 first.  ``--mesh``, in any form, exits 1 with a
+message (the multi-device modules are not ported).  ``--u32`` selects
+the 32-bit build's file widths; the default is 64-bit.
 """
 
 import argparse
@@ -27,6 +32,7 @@ from contextlib import nullcontext
 from ..io import formats
 from ..ops.parse import ParserParams
 from ..utils.errors import PfbwtError
+from ..utils.malloc_tuning import tune_malloc
 
 
 def build_argparser():
@@ -69,39 +75,24 @@ def build_argparser():
     ap.add_argument("--mesh", action="store_true",
                     help="multi-device parse (not ported yet)")
     ap.add_argument("--shards", type=int, default=0,
-                    help="pod-style sharded parse; N > 1 is not ported yet")
+                    help="pod-style parse: split into N shards, parse in "
+                         "parallel on the host, merge on the card (0 = "
+                         "single stream)")
     ap.add_argument("--workers", type=int, default=0,
-                    help="process workers for --shards > 1 (not ported yet)")
+                    help="process workers for --shards (default: shards)")
     return ap
 
 
-# flags of the staged build, which --fused does not take, and --workers
-_FUSED_REFUSES = (
-    ("chunk_mb", "--chunk-mb"), ("parse_only", "--parse-only"),
-    ("pfbwt_only", "--pfbwt-only"), ("print_docs", "--print-docs"),
-    ("workers", "--workers"),
-)
-
-
-def _unported_mode(args):
-    """The name of a requested mode this port does not have, or None."""
-    where = "--fused with " if args.fused else ""
-    if args.mesh:
-        return where + "--mesh"
-    if args.shards > 1:
-        return where + "--shards > 1"
-    for attr, flag in _FUSED_REFUSES if args.fused else ():
-        if getattr(args, attr):
-            return where + flag
-    return None
-
-
-def main(argv=None, device="cuda"):
+def main(argv=None, device="cuda", info: dict = None):
+    """The CLI; ``info``, where given, receives the staged build's stage
+    seconds (those of pipeline.run_parser, parallel/driver.pod_parse or
+    the chunked parse, then of run_pfbwt)."""
     args = build_argparser().parse_args(argv)
     print("==== Command line:", " ".join(sys.argv), file=sys.stderr)
-    mode = _unported_mode(args)
-    if mode is not None:
-        print(f"{mode} is not ported to pfbwtf_tpu_torch yet",
+    tune_malloc()  # numpy temporaries reuse the heap (malloc_tuning.py)
+    if args.mesh:
+        where = "--fused with " if args.fused else ""
+        print(f"{where}--mesh is not ported to pfbwtf_tpu_torch yet",
               file=sys.stderr)
         return 1
     if args.non_acgt_to_a and args.trim_non_acgt:
@@ -121,15 +112,16 @@ def main(argv=None, device="cuda"):
     try:
         if args.fused:
             return _run_fused(args, output, dtype, device)
-        return _run_staged(args, output, dtype, device)
+        return _run_staged(args, output, dtype, device, info)
     except PfbwtError as e:
         print(str(e), file=sys.stderr)
         return 1
 
 
-def _run_staged(args, output: str, dtype, device) -> int:
+def _run_staged(args, output: str, dtype, device, info=None) -> int:
     """The staged build (pipeline.py): stages 1 and 2 write the
-    checkpoint files, stage 3 resumes from them."""
+    checkpoint files (the pod parse with --shards > 1, else the chunked
+    or whole-array parse), stage 3 resumes from them."""
     from ..pipeline import (PfbwtConfig, run_parser, run_parser_chunked,
                             run_pfbwt)
 
@@ -145,18 +137,24 @@ def _run_staged(args, output: str, dtype, device) -> int:
             trim_non_acgt=args.trim_non_acgt,
             verbose=args.verbose,
         )
-        if args.chunk_mb > 0:
+        if args.shards > 1:
+            from ..parallel.driver import pod_parse
+
+            n = pod_parse(args.fasta, output, params, nshards=args.shards,
+                          workers=args.workers or args.shards, dtype=dtype,
+                          device=device, info=info).n
+        elif args.chunk_mb > 0:
             n = run_parser_chunked(args.fasta, output, params,
-                                   args.chunk_mb << 20, dtype, device)
+                                   args.chunk_mb << 20, dtype, device, info)
         else:
-            n = run_parser(args.fasta, output, params, dtype, device)
+            n = run_parser(args.fasta, output, params, dtype, device, info)
     if not args.parse_only:
         print("generating BWT using pfbwt algorithm...", file=sys.stderr)
         run_pfbwt(PfbwtConfig(
             prefix=output, w=args.w, sa=args.sa, rssa=args.rssa,
             verbose=args.verbose, dtype=dtype, stdout_ext=args.stdout_ext,
             device=device, mmap=args.mmap,
-        ), n)
+        ), n, info)
     return 0
 
 

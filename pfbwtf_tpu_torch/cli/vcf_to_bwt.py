@@ -14,6 +14,7 @@ import sys
 
 from ..io import formats
 from ..utils.errors import PfbwtError
+from ..utils.malloc_tuning import tune_malloc
 from ..vcf.pipeline import VcfToBwtConfig, vcf_to_bwt
 
 
@@ -51,6 +52,7 @@ def main(argv=None, device="cuda"):
     ap.add_argument("--mesh", action="store_true",
                     help="multi-device pipeline (not ported yet)")
     args = ap.parse_args(argv)
+    tune_malloc()  # numpy temporaries reuse the heap (malloc_tuning.py)
     if args.mesh:
         print("vcf_to_bwt --mesh is not ported to pfbwtf_tpu_torch yet",
               file=sys.stderr)

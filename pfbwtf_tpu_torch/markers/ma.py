@@ -5,9 +5,13 @@ time through rle_window_arr::at and RLE-writes runs of SA positions sharing
 an identical (non-empty) marker list.  Vectorized: one searchsorted over
 all SA values, content-id comparison for run boundaries, then a single pass
 over the (few) emitted runs.  ``marker_array_from_sa`` is the host numpy
-form; ``write_marker_array`` (mps_to_ma's core) runs the same permute on a
-device (markers/ma_dev.py).
+form; ``write_marker_array`` (mps_to_ma's core) and vcf_to_bwt run the
+same permute on a device (markers/ma_dev.py) unless PFBWT_MA_BACKEND,
+read at each call (``permute_sa``), is ``numpy``: only that value moves it
+to the host, where pfbwtf_tpu's unset default is the host.
 """
+
+import os
 
 import numpy as np
 
@@ -41,14 +45,22 @@ def marker_array_from_sa(sa_values: np.ndarray, mai: RleWindowArray):
     return starts, ends, markers
 
 
+def permute_sa(sa_values, mai: RleWindowArray, device="cuda"):
+    """The SA->MA permute on ``device``, or on the host when
+    PFBWT_MA_BACKEND is ``numpy``: (starts, ends, marker lists)."""
+    if os.environ.get("PFBWT_MA_BACKEND", "").lower() == "numpy":
+        return marker_array_from_sa(sa_values, mai)
+    from .ma_dev import marker_array_from_sa_dev
+
+    return marker_array_from_sa_dev(sa_values, mai, device=device)
+
+
 def write_marker_array(mps_fname: str, sa_source, output: str,
                        device="cuda"):
     """mps_to_ma CLI core: ``sa_source`` is a path to a .sa file (uint64),
     '-' for stdin, or a numpy array of SA values.  The permute's
-    searchsorted and run coalescing run on ``device``."""
+    searchsorted and run coalescing run on ``device`` (``permute_sa``)."""
     import sys
-
-    from .ma_dev import marker_array_from_sa_dev
 
     if isinstance(sa_source, str):
         if sa_source == "-":
@@ -60,7 +72,6 @@ def write_marker_array(mps_fname: str, sa_source, output: str,
     else:
         sa_values = np.asarray(sa_source, dtype=np.uint64)
     mai = RleWindowArray(mps_fname)
-    starts, ends, markers = marker_array_from_sa_dev(sa_values, mai,
-                                                     device=device)
+    starts, ends, markers = permute_sa(sa_values, mai, device=device)
     with open(output, "wb") as f:
         write_mps_runs(f, starts, ends, markers)

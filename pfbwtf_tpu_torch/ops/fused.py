@@ -17,8 +17,23 @@ checksum after J3.  Covers run_parser + run_pfbwt of the reference
 (src/pfbwt-f.cpp:209-349).  Buckets and intermediates have the JAX
 package's shapes, so the two can be compared stage by stage; uint64 hash
 words and SA values ride in int64 with the same bits.
+
+pfbwt_fused_device reads the JAX package's engine variables at each call:
+PFBWT_DICT_KEYS (``dict_alphabet``), PFBWT_FANOUT and PFBWT_SORT_IMPL
+(suffix.py) and PFBWT_DBL_SUBSET (the dict doubling).  PFBWT_DBL_INV
+maps to nothing (suffix.py), nor do these two.  PFBWT_SCAN_IMPL picks
+the JAX package's cut-scan program (its XLA scan or its Pallas kernel);
+here the cut scan of a CUDA tensor is always kernel K1 and that of a
+CPU tensor its plain version.
+PFBWT_J3_SPLIT=1 makes the JAX package dispatch J3 as two programs,
+_j3_prep_core then _j3_emit_core, to keep XLA from fusing the emission
+gathers into the doubling loop's program; eager torch fuses nothing and
+always runs J3 as those two calls, with the prep outputs kept on the
+card between them.  Like the JAX fused build, this one does not read
+PFBWT_EMIT_WIDE (only the staged build's stage 3 does).
 """
 
+import os
 import time
 
 import numpy as np
@@ -33,7 +48,7 @@ from .bwt import bwt_result
 from .bwt_dev import _exclusive_cumsum, _set_drop, assemble_core, dict_sort_part
 from .hash import cut_mask
 from .parse_bwt import parse_bwt_core
-from .suffix import compact_indices, dict_key_plan
+from .suffix import compact_indices, dict_key_plan, fanout_impl, sort_impl
 
 _MASK64 = (1 << 64) - 1
 _SIGN = -(1 << 63)  # int64 sign bit: flipping it orders int64 as uint64
@@ -54,14 +69,28 @@ def _bucket(n: int, floor: int = 1 << 12) -> int:
     return -(-n // step) * step
 
 
-def capture_levels(max_len: int, w: int) -> int:
+def capture_levels(max_len: int, w: int, alphabet: str = "byte") -> int:
     """Capture-table height for doubling_with_captures from the max dict
     word length: levels up to floor_pow2(max_len), +1 safety, rounded up
-    to a multiple of 4."""
-    _, t_min, _ = dict_key_plan(w)
+    to a multiple of 4; rows count from t_min, the smallest capture level
+    of the key packing (suffix.dict_key_plan)."""
+    _, t_min, _ = dict_key_plan(w, alphabet)
     log2tmin = int(np.round(np.log2(t_min)))
     need = int(np.floor(np.log2(max(max_len, 1)))) - log2tmin + 2
     return max(4, -(-need // 4) * 4)
+
+
+def dict_alphabet(C: np.ndarray) -> str:
+    """The key packing of the dict suffix sort: ``byte`` unless
+    PFBWT_DICT_KEYS=acgt3 and the input is pure ACGT (an empty input
+    counts as pure), as in pfbwtf_tpu.  acgt3 starts the dict doubling
+    at 16 symbols, one round after byte keys' 8."""
+    if os.environ.get("PFBWT_DICT_KEYS", "").lower() != "acgt3":
+        return "byte"
+    if C.size == 0:
+        return "acgt3"
+    pure = bool(((C == 65) | (C == 67) | (C == 71) | (C == 84)).all())
+    return "acgt3" if pure else "byte"
 
 
 def speculative_nphrases(C_len: int, p: int) -> int:
@@ -346,11 +375,11 @@ def run_parse_stream(chars, C_len: int, w: int, p: int, nph_b: int,
 
 def _j3_prep_core(Tp, parse_ranks, occs, dict_start, dict_len, last, sai,
                   nphrases: int, D: int, dict_total: int, w: int,
-                  dict_b: int, n_levels: int = None):
-    """Dict byte array, dict suffix sort with captures, true word-rank
-    recovery, parse-BWT, and the ilist segment starts permuted to the
-    provisional word order.  Returns (dict_flat, sorted_state, bwlast,
-    ilist, bwsai, seg_prov)."""
+                  dict_b: int, n_levels: int = None, alphabet: str = "byte"):
+    """Dict byte array, dict suffix sort with captures (``alphabet``: the
+    key packing), true word-rank recovery, parse-BWT, and the ilist
+    segment starts permuted to the provisional word order.  Returns
+    (dict_flat, sorted_state, bwlast, ilist, bwsai, seg_prov)."""
     dev = Tp.device
     nph_b = parse_ranks.shape[0]
     tb = Tp.shape[0]
@@ -371,7 +400,7 @@ def _j3_prep_core(Tp, parse_ranks, occs, dict_start, dict_len, last, sai,
 
     # word-start suffixes appear in SA order in byte-lex word order
     # (prefix-free), which recovers the true ranks
-    ss = dict_sort_part(dict_flat, w, n_levels=n_levels)
+    ss = dict_sort_part(dict_flat, w, n_levels=n_levels, alphabet=alphabet)
     sa_all, word_id = ss[0], ss[4]
     prev_sep0 = torch.ones(dict_b, dtype=torch.bool, device=dev)
     prev_sep0[1:] = dict_flat[:-1] <= 1
@@ -398,16 +427,28 @@ def _j3_prep_core(Tp, parse_ranks, occs, dict_start, dict_len, last, sai,
 def _final_core(Tp, parse_ranks, occs, dict_start, dict_len, last, sai,
                 nphrases: int, D: int, dict_total: int, nsuf_true: int,
                 total_true: int, w: int, dict_b: int, nsuf_b: int,
-                total_b: int, n_levels: int = None):
+                total_b: int, n_levels: int = None, fanout: str = "fill",
+                impl: str = "lax", alphabet: str = "byte"):
     """J3 -> (bwt chars, SA values, checksum).  The checksum is the
     wrapping uint64 sum of both padded buffers, as an int64 tensor."""
-    dict_flat, ss, bwlast, ilist, bwsai, seg_prov = _j3_prep_core(
+    prep = _j3_prep_core(
         Tp, parse_ranks, occs, dict_start, dict_len, last, sai,
         nphrases, D, dict_total, w, dict_b, n_levels=n_levels,
+        alphabet=alphabet,
     )
+    return _j3_emit_core(*prep, occs, nsuf_true, total_true, w, nsuf_b,
+                         total_b, fanout=fanout, impl=impl)
+
+
+def _j3_emit_core(dict_flat, ss, bwlast, ilist, bwsai, seg_prov, occs,
+                  nsuf_true: int, total_true: int, w: int, nsuf_b: int,
+                  total_b: int, fanout: str = "fill", impl: str = "lax"):
+    """The emission half of J3 over _j3_prep_core's outputs: fan-out,
+    final sort and decode -> (bwt chars, SA values, checksum)."""
     bwtc, sa_vals = assemble_core(
         dict_flat, occs, bwlast, ilist, bwsai, nsuf_true, total_true,
         w, nsuf_b, total_b, sorted_state=ss, seg_start=seg_prov,
+        fanout=fanout, impl=impl,
     )
     checksum = bwtc.to(torch.int64).sum() + sa_vals.sum()
     return bwtc, sa_vals, checksum
@@ -462,6 +503,7 @@ def pfbwt_fused_device(C: np.ndarray, w: int, p: int, want_sa: bool = False,
     dev = resolve_device(device)
     t_start = time.perf_counter()
     codes_or_die(C)
+    alphabet = dict_alphabet(C)
 
     C_len = int(C.shape[0])
     n = C_len  # text length incl. per-record pads (pfparser.hpp:529-532)
@@ -478,13 +520,14 @@ def pfbwt_fused_device(C: np.ndarray, w: int, p: int, want_sa: bool = False,
     t1 = time.perf_counter()
     del chars
     nphrases = ncuts + 1
-    n_levels = capture_levels(max_len, w)
+    n_levels = capture_levels(max_len, w, alphabet)
     nsuf = (dict_total - 1 - D) - D * w
     total = n + 1
     dict_b, nsuf_b, total_b = _bucket(dict_total), _bucket(nsuf), _bucket(total)
+    engines = dict(fanout=fanout_impl(), impl=sort_impl())
     bwt_d, sa_d, checksum_d = _final_core(
         *state[:-1], nphrases, D, dict_total, nsuf, total, w, dict_b,
-        nsuf_b, total_b, n_levels=n_levels,
+        nsuf_b, total_b, n_levels=n_levels, alphabet=alphabet, **engines,
     )
     del state
     checksum = int(checksum_d) & _MASK64  # host sync
@@ -492,7 +535,8 @@ def pfbwt_fused_device(C: np.ndarray, w: int, p: int, want_sa: bool = False,
     info = {
         "n": n, "n_b": n_b, "nphrases": nphrases, "nph_b": nph_b, "D": D,
         "dict_total": dict_total, "dict_b": dict_b, "nsuf": nsuf,
-        "n_levels": n_levels, "j2_runs": j2_runs, "host_s": t0 - t_start,
+        "n_levels": n_levels, "alphabet": alphabet, **engines,
+        "j2_runs": j2_runs, "host_s": t0 - t_start,
         "j2_s": t1 - t0, "j3_s": t2 - t1, "checksum": checksum,
         "rounds": dict(suffix.rounds),
     }

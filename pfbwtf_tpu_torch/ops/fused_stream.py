@@ -28,6 +28,7 @@ in checksum-only mode, one running checksum and invariant count at the
 end.
 """
 
+import os
 import time
 
 import numpy as np
@@ -64,7 +65,8 @@ _CHUNK_KEYS = ("first", "gid", "seg_u", "flags", "ls", "bwlast", "ilist",
 def _dict_state_core(Tp, parse_ranks, occs, dict_start, dict_len, last, sai,
                      nphrases: int, D: int, dict_total: int, nsuf_true: int,
                      chunk_target: int, w: int, dict_b: int, nsuf_b: int,
-                     max_chunks: int, n_levels: int = None):
+                     max_chunks: int, n_levels: int = None,
+                     alphabet: str = "byte"):
     """J3a -> (state, table).  ``state`` holds the dict-scale arrays by
     name (those of the JAX package's J3a, ``first`` being its
     ``emis_prefix``, plus ``seg_u`` and ``flags``, the per-suffix ilist
@@ -75,6 +77,7 @@ def _dict_state_core(Tp, parse_ranks, occs, dict_start, dict_len, last, sai,
     dict_flat, ss, bwlast, ilist, bwsai, seg_start = fused._j3_prep_core(
         Tp, parse_ranks, occs, dict_start, dict_len, last, sai,
         nphrases, D, dict_total, w, dict_b, n_levels=n_levels,
+        alphabet=alphabet,
     )
     (
         sa_kept, suf_valid, ls, gid, u, counts, first, flags, _, seg_u,
@@ -185,7 +188,7 @@ def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
                        chunk_target: int = 48 << 20, max_chunks: int = 256,
                        fetch: bool = None, want_rssa: bool = False,
                        device="cuda", j2_stream: bool = None,
-                       j2_chunk: int = 64 << 20, info: dict = None):
+                       j2_chunk: int = None, info: dict = None):
     """Whole streamed build over the padded char stream C on ``device``.
 
     With file objects, or ``want_rssa``, .bwt/.sa are written chunk by
@@ -195,8 +198,13 @@ def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
     uint64 sum of every BWT byte and SA value.
 
     ``j2_stream`` forces the streamed J2 (True) or the monolithic one
-    (False); None chooses the streamed J2 for inputs longer than
-    J2_STREAM_ABOVE.  ``j2_chunk`` is the streamed J2's chunk length.
+    (False); None reads PFBWT_J2_STREAM as the JAX package does (``1``
+    and ``0`` force it, any other value or none chooses the streamed J2
+    for inputs longer than J2_STREAM_ABOVE, the port's own switch: the
+    JAX package's sits at 288 MiB, past its TPU program's ceiling).
+    ``j2_chunk`` is the streamed J2's chunk length (None: PFBWT_J2_CHUNK,
+    else 64 MiB).  PFBWT_DICT_KEYS picks the dict key packing
+    (fused.dict_alphabet).
     ``info``, when given, receives the sizes, the stage seconds (j2_s,
     j3a_s, chunks_s; each ends in a host read) and, on a card, the
     device's peak allocation so far as each stage ends (peak_j2,
@@ -207,6 +215,7 @@ def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
         fetch = bwt_fp is not None or sa_fp is not None or want_rssa
     info = {} if info is None else info
     codes_or_die(C)
+    alphabet = fused.dict_alphabet(C)
     C_len = int(C.shape[0])
     n = C_len
     n_b = fused._bucket(max(C_len, 1), 1 << 16)
@@ -214,7 +223,10 @@ def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
     chars_p[:C_len] = C
     chars_p[C_len:] = ord("A")
     if j2_stream is None:
-        j2_stream = C_len > J2_STREAM_ABOVE
+        env = os.environ.get("PFBWT_J2_STREAM", "auto").lower()
+        j2_stream = env == "1" or (env != "0" and C_len > J2_STREAM_ABOVE)
+    if j2_chunk is None:
+        j2_chunk = int(os.environ.get("PFBWT_J2_CHUNK", str(64 << 20)))
 
     t0 = time.perf_counter()
     with task_timer("streamed build: J2 parse"):
@@ -230,9 +242,10 @@ def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
     t1 = time.perf_counter()
     ncuts, D, dict_total, max_len = meta
     nsuf = (dict_total - 1 - D) - D * w
-    n_levels = fused.capture_levels(max_len, w)
+    n_levels = fused.capture_levels(max_len, w, alphabet)
     info.update(n=n, n_b=n_b, nphrases=ncuts + 1, nph_b=state[1].shape[0],
                 D=D, dict_total=dict_total, nsuf=nsuf, n_levels=n_levels,
+                alphabet=alphabet,
                 j2_stream=j2_stream, j2_runs=j2_runs, j2_s=t1 - t0,
                 peak_j2=_peak(dev))
 
@@ -240,7 +253,7 @@ def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
         st, table = _dict_state_core(
             *state[:-1], ncuts + 1, D, dict_total, nsuf, chunk_target, w,
             fused._bucket(dict_total), fused._bucket(nsuf), max_chunks,
-            n_levels=n_levels,
+            n_levels=n_levels, alphabet=alphabet,
         )
         del state
         st = {k: st[k] for k in _CHUNK_KEYS}

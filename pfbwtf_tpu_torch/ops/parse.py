@@ -15,8 +15,13 @@ The dedup (``_dedup_and_rank``) runs on the device
 (parallel/dict_union.dedup_rank_device) or on the host: the native
 rank_substrings kernel where it builds, else (len, 128-bit substring
 hash) dedup and an 8-byte-chunk radix word sort in numpy.
+``finalize_parse`` reads PFBWT_DICT_IMPL at each call, as pfbwtf_tpu's
+dedup does: ``host`` or ``numpy`` moves a device dedup to the host, any
+other value (``jax``) or none leaves it on the device (pfbwtf_tpu's
+unset default is the host; a local card has no tunnel to spare).
 """
 
+import os
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
@@ -344,7 +349,10 @@ def finalize_parse(
 ) -> ParseResult:
     """Dict dedup + ranking + per-occurrence metadata
     (pfparser.hpp:484-517); the dedup on ``device`` (``info`` as
-    dedup_rank_device's), or on the host when it is None."""
+    dedup_rank_device's), or on the host when it is None or
+    PFBWT_DICT_IMPL is ``host`` or ``numpy``."""
+    if os.environ.get("PFBWT_DICT_IMPL", "").lower() in ("host", "numpy"):
+        device = None
     w = params.w
     T = _tprime(C, w)
     nphrases = starts.shape[0]

@@ -15,7 +15,8 @@ The parse (kernel K1's cut scan), the parse-BWT, the assembly and the
 SA->MA permute run on ``cfg.device``: the staged stages of engine.py, or
 with ``cfg.fused`` the fused build of ops/fused.py.  A ``cfg.backend`` of
 ``"numpy"`` (or the PFBWT_* variables, engine.py) moves the staged
-parse-BWT and assembly to the host.
+parse-BWT and assembly to the host, PFBWT_MA_BACKEND=numpy the SA->MA
+permute (markers/ma.permute_sa).
 
 Haplotype order matches the reference: [ref] + [sample h0, sample h1, ...]
 (vcf_to_bwt.py:191-192).
@@ -32,7 +33,7 @@ import numpy as np
 from .. import engine
 from ..io import formats
 from ..io.fasta import write_fai
-from ..markers.ma_dev import marker_array_from_sa_dev
+from ..markers.ma import permute_sa
 from ..markers.mps import read_mps_runs, write_mps_runs
 from ..markers.rle_window import RleWindowArray
 from ..ops.parse import ParserParams
@@ -299,8 +300,8 @@ def _write_bwt_outputs(cfg, log, bwt_res, info: dict):
         with task_timer("constructing marker array"):
             mai = RleWindowArray(cfg.output + ".mps")
             t1 = time.perf_counter()
-            starts, ends, markers = marker_array_from_sa_dev(
-                bwt_res.sa, mai, device=cfg.device)
+            starts, ends, markers = permute_sa(bwt_res.sa, mai,
+                                               device=cfg.device)
             t2 = time.perf_counter()
             with open(cfg.output + ".ma", "wb") as f:
                 write_mps_runs(f, starts, ends, markers)

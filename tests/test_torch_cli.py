@@ -187,12 +187,42 @@ def test_cli_lone_shards_and_workers_equal_jax(tmp_path, args):
     _assert_files_equal(tmp_path, "port", "jax", exts)
 
 
+def _files_of(tmp_path, prefix):
+    """{name after the prefix: bytes} of every file a run wrote."""
+    return {p.name[len(prefix):]: p.read_bytes()
+            for p in tmp_path.iterdir() if p.name.startswith(prefix + ".")}
+
+
+@pytest.mark.parametrize("args", [
+    ["--fused", "-s", "--parse-only"], ["--fused", "-s", "--pfbwt-only"],
+    ["--fused", "-s", "-r", "--print-docs"], ["-s", "--shards", "2"],
+    ["--fused", "-s", "--chunk-mb", "4"], ["--fused", "-r", "--shards", "2"],
+    ["--fused", "-s", "--workers", "2"],
+    ["--fused", "--parse-only", "--pfbwt-only"],
+])
+def test_cli_formerly_refused_modes_equal_jax(tmp_path, args, monkeypatch):
+    """--fused ignores the staged build's flags, as pfbwtf_tpu's CLI does
+    (--parse-only with --pfbwt-only still exits 1 first), and --shards 2
+    runs the pod parse: the same exit code and the same files, checkpoint
+    and shard files included."""
+    fa = tmp_path / "in.fa"
+    _fasta(fa)
+    rc = torch_main([str(fa), "-o", str(tmp_path / "port"), *args],
+                    device="cpu")
+    # pfbwtf_tpu's in-process shard worker sets PFBWT_BACKEND with
+    # setdefault: set it here, so that it ends with the test
+    monkeypatch.setenv("PFBWT_BACKEND", "numpy")
+    assert jax_main([str(fa), "-o", str(tmp_path / "jax"), *args]) == rc
+    got, want = _files_of(tmp_path, "port"), _files_of(tmp_path, "jax")
+    assert got == want
+    if rc == 0:
+        assert ".bwt" in got
+    if "--fused" in args and rc == 0:
+        assert ".dict" not in got
+
+
 @pytest.mark.parametrize("args", [
     ["--mesh"], ["--fused", "-m", "--mesh"], ["--fused", "--mesh"],
-    ["--fused", "--parse-only"],
-    ["--fused", "--pfbwt-only"], ["--fused", "--print-docs"],
-    ["--shards", "2"], ["--fused", "--chunk-mb", "4"],
-    ["--fused", "--shards", "2"], ["--fused", "--workers", "2"],
 ])
 def test_cli_unported_modes_exit_1(tmp_path, args, capsys):
     fa = tmp_path / "in.fa"

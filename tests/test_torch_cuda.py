@@ -342,3 +342,59 @@ def test_host_backend_equals_device_backend_on_card(card, tmp_path,
         for ext in ELEVEN:
             assert ((tmp_path / f"{name}.{ext}").read_bytes()
                     == (tmp_path / f"dev.{ext}").read_bytes()), (name, ext)
+
+
+CARD_ENGINES = [
+    ("PFBWT_SORT_IMPL", "radix"), ("PFBWT_FANOUT", "scatter"),
+    ("PFBWT_FANOUT", "merge"), ("PFBWT_DICT_KEYS", "acgt3"),
+    ("PFBWT_DBL_SUBSET", "4"), ("PFBWT_DBL_SUBSET", "8"),
+    ("PFBWT_DBL_INV", "scatter"), ("PFBWT_J3_SPLIT", "1"),
+]
+
+
+@pytest.mark.parametrize("var,value", CARD_ENGINES,
+                         ids=[f"{v}={x}" for v, x in CARD_ENGINES])
+def test_fused_engine_card_equals_default(card, monkeypatch, var, value):
+    """Each opt-in engine of the fused build at 1 MB on the card: the
+    default engine's files and checksum, one K1 launch."""
+    fa = _pan_fasta_records(40, 1 << 17, 8)
+    kw = dict(want_sa=True, want_rssa=True)
+    want, winfo = pfbwt_fused_records(fa, ParserParams(), device="cuda", **kw)
+    monkeypatch.setenv(var, value)
+    before = k1.launches
+    got, info = pfbwt_fused_records(fa, ParserParams(), device="cuda", **kw)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 1
+    for field in ("bwt", "sa", "ssa", "esa"):
+        assert np.array_equal(getattr(got, field), getattr(want, field))
+    # the padded lanes too: the default fill fan-out ignores the sort
+    # engine, and the single-key sort of every fan-out decodes them alike
+    assert info["checksum"] == winfo["checksum"]
+
+
+def _pan_fasta_records(seed, unit_len, copies, nmut=200):
+    rng = np.random.default_rng(seed)
+    unit = rng.choice(ACGT, size=unit_len)
+    out = []
+    for i in range(copies):
+        hap = unit.copy()
+        pos = rng.integers(0, hap.size, size=nmut)
+        hap[pos] = ACGT[rng.integers(0, 4, size=nmut)]
+        out.append((f"h{i}", hap))
+    return out
+
+
+def test_pod_parse_card_equals_staged(card, tmp_path):
+    """pfbwt_f -s -r --shards 2 at 1 MB: two spawn workers on the host,
+    the merge on the card (one K1 launch in this process), and the
+    files of the whole staged build."""
+    fa = _pan_fasta(tmp_path / "in.fa", 41, 1 << 17, 8)
+    assert cli_main([fa, "-o", str(tmp_path / "whole"), "-s", "-r"]) == 0
+    before = k1.launches
+    assert cli_main([fa, "-o", str(tmp_path / "pod"), "-s", "-r",
+                     "--shards", "2"]) == 0
+    torch.cuda.synchronize()
+    assert k1.launches == before + 1
+    for ext in ELEVEN:
+        assert ((tmp_path / f"pod.{ext}").read_bytes()
+                == (tmp_path / f"whole.{ext}").read_bytes()), ext

@@ -72,7 +72,8 @@ NEW_MODULES = (
     "cli.mps_to_ma", "parallel.merge", "vcf.filter", "markers.dump",
     "ops.bwt", "ops.parse_bwt", "cli.merge_pfp", "cli.simplebwt",
     "cli.consensus", "cli.dump_markers", "cli.readable_sa",
-    "cli.readable_markers", "cli.dump_intfile",
+    "cli.readable_markers", "cli.dump_intfile", "parallel.driver",
+    "utils.malloc_tuning",
 )
 
 
@@ -122,7 +123,8 @@ def test_merge_pfp_default_device_raises_without_a_card(tmp_path):
               "--parse-bwt"])
 
 
-@pytest.mark.parametrize("extra", [[], ["--chunk-mb", "1"]])
+@pytest.mark.parametrize("extra", [[], ["--chunk-mb", "1"],
+                                   ["--shards", "2", "--workers", "1"]])
 def test_staged_cli_default_device_raises_without_a_card(tmp_path, extra):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -153,3 +155,49 @@ def test_chip_smoke_refuses_without_a_card():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_import_tunes_no_malloc_the_build_clis_do(tmp_path, monkeypatch):
+    """Importing every module of the port leaves glibc's malloc alone
+    (pfbwtf_tpu tunes it at import); the build CLIs tune it first thing,
+    and so does each of the pod parse's shard parses."""
+    code = (
+        "import importlib, pkgutil\n"
+        "import pfbwtf_tpu_torch\n"
+        "from pfbwtf_tpu_torch.utils import malloc_tuning\n"
+        "real, calls = malloc_tuning.tune_malloc, []\n"
+        "malloc_tuning.tune_malloc = lambda *a: calls.append(a)\n"
+        "for m in pkgutil.walk_packages(pfbwtf_tpu_torch.__path__,"
+        " 'pfbwtf_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert calls == [], calls\n"
+        "assert real()\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+
+    from pfbwtf_tpu_torch.cli import merge_pfp, pfbwt_f, vcf_to_bwt
+    from pfbwtf_tpu_torch.utils import malloc_tuning
+
+    calls = []
+    for mod in (pfbwt_f, merge_pfp, vcf_to_bwt):
+        monkeypatch.setattr(mod, "tune_malloc", lambda: calls.append(1))
+    monkeypatch.setattr(malloc_tuning, "tune_malloc",
+                        lambda: calls.append(2))
+    rng = np.random.default_rng(3)
+    fa = tmp_path / "x.fa"
+    fa.write_bytes(b"".join(
+        b">%d\n" % i + rng.choice(np.frombuffer(b"ACGT", np.uint8),
+                                  size=3000).tobytes() + b"\n"
+        for i in range(2)))
+    assert pfbwt_f.main([str(fa), "-o", str(tmp_path / "o"), "-s",
+                         "--shards", "2", "--workers", "1"],
+                        device="cpu") == 0
+    assert calls == [1, 2, 2]  # the CLI, then each in-process shard
+    assert merge_pfp.main([str(fa), "-o", str(tmp_path / "m")],
+                          device="cpu") == 0
+    assert vcf_to_bwt.main(["--mesh", str(fa), "v.vcf"], device="cpu") == 1
+    assert calls == [1, 2, 2, 1, 1]

@@ -94,7 +94,7 @@ def test_compact_indices_matches_jax(size):
 @pytest.mark.parametrize("w", [1, 3, 4, 10])
 def test_packed_dict_keys_match_jax(w):
     _, dfp, _ = _padded_dict("random")
-    got, k0 = tsuf.packed_dict_keys(torch.from_numpy(dfp), w)
+    got, k0, fp = tsuf.packed_dict_keys(torch.from_numpy(dfp), w)
     want, jk0, _ = jsuf.packed_dict_keys(jnp.asarray(dfp), w)
     assert k0 == jk0
     assert np.array_equal(got.numpy(), np.asarray(want))
@@ -105,7 +105,7 @@ def test_doubling_with_captures_matches_jax(n_levels):
     """Including a table too short for the longest suffixes, where the
     uncaptured queries keep their sentinels."""
     _, dfp, w = _padded_dict("repetitive")
-    keys, k0 = tsuf.packed_dict_keys(torch.from_numpy(dfp), w)
+    keys, k0, _ = tsuf.packed_dict_keys(torch.from_numpy(dfp), w)
     suf_len = bwt_dev.dict_sort_part(torch.from_numpy(dfp), w)[3]
     got = tsuf.doubling_with_captures(keys, suf_len, k0, n_levels=n_levels)
     want = jsuf.doubling_with_captures(
