@@ -111,6 +111,17 @@ line:
    records, and the card's .ma equals the host permute's over the same
    .sa; scan, parse + BWT and SA->MA seconds, peak device memory, n, r and
    marker runs are printed.
+16. The mesh family on the card (after 14, before 15), as one one-rank
+   NCCL world made in this process and destroyed at the end, every CLI
+   call inside running on it: at 1 MB pfbwt_f --fused --mesh, --fused -m
+   --mesh and --mesh (-s -r) give phases 4's and 8's files; at 64 MB
+   --fused --mesh gives phase 5's .bwt/.sa/.ssa/.esa and --mesh phase 9's
+   eleven files; vcf_to_bwt --mesh -s -r -m on the phase-14 panel gives
+   its fused run's .bwt/.sa/.ssa/.esa/.ma/.mps.  Each build launches K1;
+   the mesh parse's sizing and rows steps, the dict rank, the
+   parse-BWT's doubling and ilist sort, the dict gSA doubling, the
+   emission keys, the sort, decode and gather, the writes, the doubling
+   rounds, the exchanges and the peak device memory are printed.
 15. The full size of the streamed path: the 1 GiB pan-genome of
    benchmarks/stream_big.py (32 mutated copies of a 32 MiB unit, SNP rate
    0.001, seed 4321) in checksum-only mode with the default chunk target
@@ -1666,6 +1677,7 @@ def phase_vcf_panel(out_dir: str):
           "and fused runs' files differ")
     bwt = np.frombuffer(bytearray(files["staged"]["bwt"]), dtype=np.uint8)
     sa = np.frombuffer(files["staged"]["sa"], dtype=np.uint64)
+    fused_files = files["fused"]
     del files
 
     t1 = time.perf_counter()
@@ -1694,10 +1706,107 @@ def phase_vcf_panel(out_dir: str):
               "differs from the host permute's")
     print(f"vcf_to_bwt panel: the card's .ma ({len(runs[2])} runs) equals "
           f"markers/ma.marker_array_from_sa on the host ({host_s:.2f} s)")
-    for prefix in (f"{pre}_staged", f"{pre}_fused",
-                   os.path.join(out_dir, "panel")):
+    for prefix in (f"{pre}_staged", f"{pre}_fused"):
         remove_prefix(prefix)
-    return launches["staged"], launches["fused"]
+    # phase 16 builds the same panel over the mesh, against these files
+    return launches["staged"], launches["fused"], (fa, vcf, fused_files)
+
+
+def mesh_line(info) -> str:
+    """A mesh build's stage seconds, doubling rounds and exchanges."""
+    keys = ("sizing_s", "rows_s", "rank_s", "bounds_s", "parse_sa_s",
+            "ilist_s", "dict_sa_s", "layout_s", "emit_sort_s", "j3a_s",
+            "keys_s", "sort_s", "decode_s", "gather_s", "fetch_s",
+            "assembly_s", "write_s")
+    st = info["mesh_stats"]
+    return (", ".join(f"{k} {info[k]:.4f}" for k in keys if k in info)
+            + f"; mesh doubling rounds {st['rounds']}, {st['exchanges']} "
+            f"exchanges sending {st['rows_sent']} rows, stream fallbacks "
+            f"{st['stream_fallbacks']}")
+
+
+def mesh_cli(label: str, argv, want, exts):
+    """pfbwt_f through the CLI (inside phase 16's world), with K1's count
+    set to 0 just before and read just after; its files must equal
+    ``want``.  Returns K1's launches."""
+    import torch
+
+    from pfbwtf_tpu_torch.cli.pfbwt_f import main as cli_main
+    from pfbwtf_tpu_torch.ops import suffix
+    from pfbwtf_tpu_torch.ops.cuda import hash_scan as k1
+
+    fresh_memory()
+    info = {}
+    suffix.rounds.update(parse_sa=0, dict_sa=0, dict_sa_subset=0)
+    k1.launches = 0
+    t0 = time.perf_counter()
+    rc = cli_main(argv, info=info)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = k1.launches
+    peak = torch.cuda.max_memory_allocated()
+    prefix = argv[argv.index("-o") + 1]
+    check(rc == 0, f"{label}: exit code {rc}")
+    check(launches >= 1, f"{label}: no K1 launch")
+    check(read_files(prefix, exts) == {e: want[e] for e in exts},
+          f"{label}: the files differ")
+    print(f"{label}: {secs:.4f} s end to end ({mesh_line(info)}; "
+          f"single-device doubling rounds {dict(suffix.rounds)}); peak "
+          f"device memory {peak} bytes ({peak / 2**30:.2f} GiB); K1 "
+          f"launches {launches}; {len(exts)} files equal")
+    remove_files(prefix, exts)
+    return launches
+
+
+def phase_mesh(fasta1: str, small_fused, small_staged, fasta64: str,
+               fused64, staged64, panel):
+    """Phase 16: the mesh family on the card as one one-rank NCCL world,
+    made here and destroyed at the end; every CLI call inside runs on
+    it.  1 MB: pfbwt_f --fused --mesh, --fused -m --mesh and --mesh (each
+    -s -r) against phases 4 and 8; 64 MB: --fused --mesh against phase
+    5's files and --mesh against phase 9's eleven; the phase-14 panel:
+    vcf_to_bwt --mesh -s -r -m against its fused run's
+    .bwt/.sa/.ssa/.esa/.ma/.mps.  Each build launches K1; stage seconds,
+    doubling rounds, exchanges and peaks are printed."""
+    import torch.distributed as dist
+
+    from pfbwtf_tpu_torch.parallel.sharded import make_parse_mesh
+
+    out_dir = os.path.dirname(fasta64)
+    four = ("bwt", "sa", "ssa", "esa")
+    launches = {}
+    with make_parse_mesh("cuda") as mesh:
+        check(mesh.owned and mesh.size == 1 and dist.get_backend() == "nccl",
+              "phase 16 needs its own one-rank NCCL world")
+        for label, extra, src, want, exts in (
+                ("--fused --mesh 1 MB", ["--fused"], fasta1, small_fused,
+                 four),
+                ("--fused -m --mesh 1 MB", ["--fused", "-m"], fasta1,
+                 small_fused, four),
+                ("--mesh 1 MB", [], fasta1, small_staged, ELEVEN),
+                ("--fused --mesh 64 MB", ["--fused"], fasta64, fused64,
+                 four),
+                ("--mesh 64 MB", [], fasta64, staged64, ELEVEN)):
+            launches[label] = mesh_cli(
+                label, [src, "-o", os.path.join(out_dir, "mesh"), "-s", "-r",
+                        "--mesh", *extra], want, exts)
+        fa, vcf, want = panel
+        pre = os.path.join(out_dir, "panel_out_mesh")
+        info, launch, secs, peak = vcf_cli(
+            [fa, vcf, "-o", pre, "-s", "-r", "-m", "--wsize", str(W),
+             "--mod", str(P), "--mesh"])
+        check(launch >= 1, "vcf_to_bwt --mesh: no K1 launch")
+        check(read_files(pre, tuple(want)) == want, "vcf_to_bwt --mesh: the "
+              "files differ from the fused run's")
+        print(f"vcf_to_bwt panel --mesh: {secs:.4f} s end to end "
+              f"({vcf_line(info)}; {mesh_line(info)}); peak device memory "
+              f"{peak} bytes ({peak / 2**30:.2f} GiB); K1 launches {launch};"
+              " .bwt/.sa/.ssa/.esa/.ma/.mps equal the fused run's")
+        launches["vcf_to_bwt --mesh"] = launch
+        remove_prefix(pre)
+    check(not dist.is_initialized(), "phase 16's world outlived it")
+    remove_prefix(os.path.join(out_dir, "panel"))
+    return launches
 
 
 def phase_stream_big():
@@ -1815,7 +1924,6 @@ def main() -> int:
                                                             small_cpu)
     by_path["staged 1 MB, PFBWT_BACKEND=numpy"] = phase_host_small(
         small_fasta, small_records, small_want)
-    del small_want
     by_path["staged -m 1 MB"] = phase_mmap_small(small_fasta, small_cpu)
     (by_path["staged 64 MB"], by_path[f"staged --chunk-mb {CHUNK_MB}"],
      whole_pre, whole, staged_info) = phase_staged_main(
@@ -1825,13 +1933,17 @@ def main() -> int:
     by_path.update(phase_engines_main(C, mono_res, whole_pre, whole))
     by_path.update(phase_pod_main(fasta64, whole))
     by_path["staged -m 64 MB"] = phase_mmap_main(fasta64, whole_pre, whole)
-    os.remove(fasta64)
-    del C, mono_res, whole
+    fused64 = result_files(mono_res)
+    del C, mono_res
     small = phase_vcf_small(out_dir)
     by_path["vcf_to_bwt small staged"] = small["staged"]
     by_path["vcf_to_bwt small fused"] = small["fused"]
-    by_path["vcf_to_bwt staged"], by_path["vcf_to_bwt fused"] = (
+    by_path["vcf_to_bwt staged"], by_path["vcf_to_bwt fused"], panel = (
         phase_vcf_panel(out_dir))
+    by_path.update(phase_mesh(small_fasta, result_files(small_cpu),
+                              small_want, fasta64, fused64, whole, panel))
+    os.remove(fasta64)
+    del fused64, whole, panel
     by_path[f"fused -m {BIG_MB} MB"] = phase_stream_big()
     row["launches_by_path"] = by_path
     print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")

@@ -16,17 +16,26 @@ Two builds run on the CUDA card:
 - the fused whole-pipeline build (``--fused``), with its streamed form
   (``--fused -m``) for inputs past the one-program memory ceiling.
 
-As in pfbwtf_tpu, ``--shards`` 0 or 1 and a ``--workers`` count without
-``--shards`` change nothing, and ``--fused`` ignores the staged build's
-flags (``--chunk-mb``, ``--parse-only``, ``--pfbwt-only``,
+``--mesh`` runs either build over the mesh (parallel/): staged, the
+mesh parse and the parse-BWT's sorts as collectives, then stage 3's
+sorts (never the streamed -m, as in pfbwtf_tpu); with ``--fused`` (and
+``--fused -m``) the fused mesh build.  In one process that is a
+one-rank world on the card; under ``torchrun --nproc-per-node N`` every
+rank runs the CLI, rank 0 alone writes the files and the ``-c`` bytes,
+and every rank returns the same exit code.
+
+As in pfbwtf_tpu, ``--mesh`` comes before ``--shards``, which comes
+before ``--chunk-mb``; ``--shards`` 0 or 1 and a ``--workers`` count
+without ``--shards`` change nothing, and ``--fused`` ignores the staged
+build's flags (``--chunk-mb``, ``--parse-only``, ``--pfbwt-only``,
 ``--print-docs``, ``--shards``, ``--workers``); ``--parse-only`` with
-``--pfbwt-only`` exits 1 first.  ``--mesh``, in any form, exits 1 with a
-message (the multi-device modules are not ported).  ``--u32`` selects
-the 32-bit build's file widths; the default is 64-bit.
+``--pfbwt-only`` exits 1 first.  ``--u32`` selects the 32-bit build's
+file widths; the default is 64-bit.
 """
 
 import argparse
 import sys
+import time
 from contextlib import nullcontext
 
 from ..io import formats
@@ -73,7 +82,8 @@ def build_argparser():
                     help="whole-pipeline device run: chars -> .bwt/.sa with "
                          "no host hops between stages")
     ap.add_argument("--mesh", action="store_true",
-                    help="multi-device parse (not ported yet)")
+                    help="the build over the mesh: one rank a card under "
+                         "torchrun, a one-rank world otherwise")
     ap.add_argument("--shards", type=int, default=0,
                     help="pod-style parse: split into N shards, parse in "
                          "parallel on the host, merge on the card (0 = "
@@ -85,16 +95,12 @@ def build_argparser():
 
 def main(argv=None, device="cuda", info: dict = None):
     """The CLI; ``info``, where given, receives the staged build's stage
-    seconds (those of pipeline.run_parser, parallel/driver.pod_parse or
-    the chunked parse, then of run_pfbwt)."""
+    seconds (those of pipeline.run_parser, parallel/driver.pod_parse, the
+    chunked parse or the mesh parse, then of run_pfbwt), or the fused
+    mesh build's, and with --mesh ``mesh_stats`` (ParseMesh.stats)."""
     args = build_argparser().parse_args(argv)
     print("==== Command line:", " ".join(sys.argv), file=sys.stderr)
     tune_malloc()  # numpy temporaries reuse the heap (malloc_tuning.py)
-    if args.mesh:
-        where = "--fused with " if args.fused else ""
-        print(f"{where}--mesh is not ported to pfbwtf_tpu_torch yet",
-              file=sys.stderr)
-        return 1
     if args.non_acgt_to_a and args.trim_non_acgt:
         print("cannot have both --non-acgt-to-a and --trim-non-acgt",
               file=sys.stderr)
@@ -110,6 +116,15 @@ def main(argv=None, device="cuda", info: dict = None):
     output = args.output or args.fasta
     dtype = formats.U32 if args.u32 else formats.U64
     try:
+        if args.mesh:
+            from ..parallel.sharded import make_parse_mesh
+
+            with make_parse_mesh(device) as mesh:
+                if info is not None:  # exchanges, rows sent, rounds
+                    info["mesh_stats"] = mesh.stats
+                if args.fused:
+                    return _run_fused_mesh(args, output, dtype, mesh, info)
+                return _run_staged(args, output, dtype, device, info, mesh)
         if args.fused:
             return _run_fused(args, output, dtype, device)
         return _run_staged(args, output, dtype, device, info)
@@ -118,10 +133,12 @@ def main(argv=None, device="cuda", info: dict = None):
         return 1
 
 
-def _run_staged(args, output: str, dtype, device, info=None) -> int:
+def _run_staged(args, output: str, dtype, device, info=None,
+                mesh=None) -> int:
     """The staged build (pipeline.py): stages 1 and 2 write the
-    checkpoint files (the pod parse with --shards > 1, else the chunked
-    or whole-array parse), stage 3 resumes from them."""
+    checkpoint files (the mesh parse with a ``mesh``, else the pod parse
+    with --shards > 1, else the chunked or whole-array parse), stage 3
+    resumes from them (its sorts over the mesh with one)."""
     from ..pipeline import (PfbwtConfig, run_parser, run_parser_chunked,
                             run_pfbwt)
 
@@ -137,7 +154,9 @@ def _run_staged(args, output: str, dtype, device, info=None) -> int:
             trim_non_acgt=args.trim_non_acgt,
             verbose=args.verbose,
         )
-        if args.shards > 1:
+        if mesh is not None:
+            n = _mesh_parse(args.fasta, output, params, dtype, mesh, info)
+        elif args.shards > 1:
             from ..parallel.driver import pod_parse
 
             n = pod_parse(args.fasta, output, params, nshards=args.shards,
@@ -153,9 +172,69 @@ def _run_staged(args, output: str, dtype, device, info=None) -> int:
         run_pfbwt(PfbwtConfig(
             prefix=output, w=args.w, sa=args.sa, rssa=args.rssa,
             verbose=args.verbose, dtype=dtype, stdout_ext=args.stdout_ext,
-            device=device, mmap=args.mmap,
+            device=device, mmap=args.mmap and mesh is None, mesh=mesh,
         ), n, info)
     return 0
+
+
+def _mesh_parse(fasta: str, output: str, params, dtype, mesh, info) -> int:
+    """Stages 1 and 2 over the mesh (parallel/dict_union, pfbwt_mesh),
+    every rank; rank 0 writes the checkpoint files, and a barrier holds
+    the other ranks until they exist.  The width checks run on every
+    rank, so that every rank raises at the same point.  Returns n."""
+    from ..io.fasta import read_fasta_bytes
+    from ..parallel.dict_union import distributed_parse_records
+    from ..parallel.pfbwt_mesh import mesh_parse_bwt
+    from ..pipeline import save_parser
+    from ..utils.limits import check_phrase_count, check_text_width
+
+    info = {} if info is None else info
+    res = distributed_parse_records(read_fasta_bytes(fasta), params, mesh,
+                                    info)
+    check_text_width(res.n, dtype)
+    check_phrase_count(res.parse_ranks.shape[0], dtype)
+    t0 = time.perf_counter()
+    if mesh.rank == 0:
+        save_parser(res, output, dtype)
+    t1 = time.perf_counter()
+    pb = mesh_parse_bwt(res.parse_ranks, res.last, res.sai, mesh,
+                        get_sai=params.get_sai, info=info)
+    t2 = time.perf_counter()
+    if mesh.rank == 0:
+        formats.write_u8(output + ".bwlast", pb.bwlast)
+        formats.write_uint(output + ".ilist", pb.ilist, dtype)
+        if params.get_sai:
+            formats.write_uint(output + ".bwsai", pb.bwsai, dtype)
+    mesh.barrier()
+    info["write_s"] = t1 - t0 + time.perf_counter() - t2
+    return res.n
+
+
+def _run_fused_mesh(args, output: str, dtype, mesh, info=None) -> int:
+    """The fused build over the mesh (parallel/fused_mesh.py), with or
+    without -m: .bwt/.sa[/.ssa/.esa] written by rank 0 after the width
+    check on every rank."""
+    from ..io.fasta import read_fasta_bytes
+    from ..parallel.fused_mesh import pfbwt_fused_mesh_records
+    from ..utils.limits import check_text_width
+    from ..utils.timer import task_timer
+
+    info = {} if info is None else info
+    params = ParserParams(
+        w=args.w, p=args.p, non_acgt_to_a=args.non_acgt_to_a,
+        verbose=args.verbose,
+    )
+    with task_timer("fused mesh pipeline (parse+pfbwt)"):
+        res = pfbwt_fused_mesh_records(
+            read_fasta_bytes(args.fasta), params, mesh, want_sa=args.sa,
+            want_rssa=args.rssa, sa_dtype=dtype, info=info)
+    check_text_width(info["n"], dtype)
+    if mesh.rank != 0:
+        return 0
+    t0 = time.perf_counter()
+    rc = _write_fused_outputs(args, output, dtype, res)
+    info["write_s"] = time.perf_counter() - t0
+    return rc
 
 
 def _run_fused(args, output: str, dtype, device) -> int:

@@ -5,8 +5,10 @@ orchestrator (vcf_to_bwt.py:296-320), every heavy stage on the CUDA card.
 
 ``--device`` is accepted and changes nothing (the parse, parse-BWT,
 assembly and SA->MA permute run on the card already); ``--mmap/-M`` is
-accepted and read by nothing, as in pfbwtf_tpu; ``--mesh`` exits 1 (not
-ported).
+accepted and read by nothing, as in pfbwtf_tpu; ``--mesh`` runs the
+fused build over the mesh (a one-rank world in one process; under
+torchrun rank 0 scans and writes, and every rank returns the same exit
+code).
 """
 
 import argparse
@@ -50,13 +52,10 @@ def main(argv=None, device="cuda"):
                     help="whole-pipeline device run for the parse->BWT->SA "
                          "stages (no checkpoint files)")
     ap.add_argument("--mesh", action="store_true",
-                    help="multi-device pipeline (not ported yet)")
+                    help="fused mesh pipeline: the mesh parse and the "
+                         "distributed emission sort")
     args = ap.parse_args(argv)
     tune_malloc()  # numpy temporaries reuse the heap (malloc_tuning.py)
-    if args.mesh:
-        print("vcf_to_bwt --mesh is not ported to pfbwtf_tpu_torch yet",
-              file=sys.stderr)
-        return 1
 
     samples = None
     if args.samples:
@@ -80,6 +79,7 @@ def main(argv=None, device="cuda"):
         device=device,
         contigs=[c for c in args.contigs.split(",") if c] or None,
         fused=args.fused,
+        mesh=args.mesh,
     )
     try:
         vcf_to_bwt(cfg)

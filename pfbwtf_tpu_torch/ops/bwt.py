@@ -54,7 +54,8 @@ def bwt_result(bwtc: np.ndarray, sa: Optional[np.ndarray], want_sa: bool,
                      ssa=ssa, esa=esa)
 
 
-def suffix_layout(dict_flat, w, occs, small_hint=True, workspace=None):
+def suffix_layout(dict_flat, w, occs, small_hint=True, workspace=None,
+                  sa_all=None, word_id=None, suf_len=None):
     """Dict-scale emission layout of the staged -m assembly, on the host
     (pfbwtf_tpu/ops/bwt.py::suffix_layout): kept suffixes (longer than
     w) in lexicographic order, their equality groups, owning words and
@@ -66,7 +67,10 @@ def suffix_layout(dict_flat, w, occs, small_hint=True, workspace=None):
     from numpy prefix doubling with hash-and-verify groups and no LCP.
     ``workspace(sa_all, lcp_or_none)`` is called with the full gSA right
     after the sort: the hook that spills the reference's .gsa/.glcp files
-    (pfbwt.hpp:208-209).
+    (pfbwt.hpp:208-209).  A caller that sorted the dict itself (the
+    mesh's distributed doubling) passes its ``sa_all`` with the
+    ``word_id`` and ``suf_len`` of suffix_np.dict_initial_symbols_np; the
+    groups are then suffix_group_ids_np's hash-and-verify ones.
 
     Returns (sa_kept, gid, u, suf_len_kept, seg_start, idt)."""
     from .. import native
@@ -75,7 +79,7 @@ def suffix_layout(dict_flat, w, occs, small_hint=True, workspace=None):
     dict_flat = np.asarray(dict_flat, dtype=np.uint8)
     small = dict_flat.shape[0] < 2**31 - 8 and small_hint
     idt = np.int32 if small else np.int64
-    if native.available():
+    if sa_all is None and native.available():
         sa_all, lcp, word_id, suf_len, _ = (
             native.dict_suffix_sort_lcp_native(dict_flat))
         if workspace is not None:
@@ -89,7 +93,8 @@ def suffix_layout(dict_flat, w, occs, small_hint=True, workspace=None):
               & (lcp[kidx[1:]] >= ls[:-1]))
         gid = np.concatenate((np.zeros(1, idt), np.cumsum(~eq, dtype=idt)))
     else:
-        sa_all, word_id, suf_len, _ = dict_suffix_sort_np(dict_flat)
+        if sa_all is None:
+            sa_all, word_id, suf_len, _ = dict_suffix_sort_np(dict_flat)
         sa_all, word_id, suf_len = (
             np.asarray(a).astype(idt) for a in (sa_all, word_id, suf_len))
         if workspace is not None:
@@ -105,8 +110,11 @@ def suffix_layout(dict_flat, w, occs, small_hint=True, workspace=None):
     return sa_kept, gid, u, suf_len[sa_kept], seg_start, idt
 
 
-def _emissions(dict_flat, w, occs, ilist):
-    """Sorted dict suffixes and their emission layout.
+def _emissions(dict_flat, w, occs, ilist, sa_all=None, word_id=None,
+               suf_len=None):
+    """Sorted dict suffixes and their emission layout (``sa_all``,
+    ``word_id``, ``suf_len``: a dict sort done by the caller, as in
+    suffix_layout).
 
     Returns (sa_kept, gid, word_of_suffix, suf_len_kept, E_suffix, E_j).
 
@@ -114,7 +122,8 @@ def _emissions(dict_flat, w, occs, ilist):
     indexing is far slower than its 32-bit one), as in pfbwtf_tpu."""
     ilist = np.asarray(ilist)
     sa_kept, gid, u, suf_len_kept, seg_start, idt = suffix_layout(
-        dict_flat, w, occs, small_hint=ilist.shape[0] < 2**31 - 8)
+        dict_flat, w, occs, small_hint=ilist.shape[0] < 2**31 - 8,
+        sa_all=sa_all, word_id=word_id, suf_len=suf_len)
     occs = np.asarray(occs).astype(idt)
     counts = occs[u]
     E_suffix = np.repeat(np.arange(sa_kept.shape[0], dtype=idt), counts)

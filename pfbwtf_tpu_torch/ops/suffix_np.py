@@ -129,20 +129,17 @@ def suffix_group_ids_np(dict_flat, sa_kept, suf_len, verify: bool = True):
     )
     gid = np.concatenate(([0], np.cumsum(~e))).astype(np.int64)
     if verify and e.any():
-        # vectorized byte verification of every claimed-equal adjacent pair:
-        # one masked compare per offset d (bounded by the longest pair)
+        # vectorized byte verification of every claimed-equal adjacent pair,
+        # longest first: at offset d only the pairs longer than d, a
+        # prefix, are compared, so the work is the pairs' total length
         flat = np.asarray(dict_flat)
         pairs = np.flatnonzero(e)
-        a = sa_kept[pairs]
-        b = sa_kept[pairs + 1]
         L = ls[pairs].astype(np.int64)
-        ok = np.ones(pairs.shape[0], dtype=bool)
-        top = flat.shape[0] - 1
-        for d in range(int(L.max())):
-            m = d < L  # masked lanes may index past their suffix: clip
-            ai = np.minimum(a + d, top)
-            bi = np.minimum(b + d, top)
-            ok &= ~m | (flat[ai] == flat[bi])
-        if not ok.all():
-            raise AssertionError("suffix hash collision — please report")
+        order = np.argsort(-L, kind="stable")
+        a = sa_kept[pairs][order].astype(np.int64)
+        b = sa_kept[pairs + 1][order].astype(np.int64)
+        live = np.searchsorted(-L[order], -np.arange(L.max()), side="left")
+        for d, k in enumerate(live):
+            if not np.array_equal(flat[a[:k] + d], flat[b[:k] + d]):
+                raise AssertionError("suffix hash collision — please report")
     return gid

@@ -74,6 +74,9 @@ class PfbwtConfig:
     device: str = "cuda"
     backend: Optional[str] = None  # 'numpy': stage 3 on the host (engine.py)
     mmap: bool = False  # -m: memmap inputs + streamed bounded-memory stage 3
+    # a parallel/sharded.ParseMesh: stage 3's sorts over the mesh, every
+    # rank reading the files and rank 0 alone writing
+    mesh: object = None
 
 
 def run_parser(in_fname: str, output: str, params: ParserParams, dtype=U64,
@@ -128,10 +131,12 @@ def _out_handle(cfg: PfbwtConfig, ext: str):
 
 def run_pfbwt(cfg: PfbwtConfig, n: Optional[int] = None, info: dict = None):
     """Stage 3: load the checkpoint files, assemble the final BWT on
-    cfg.device (or on the host: cfg.backend, engine.assemble_bwt), write
+    cfg.device (or on the host: cfg.backend, engine.assemble_bwt; or
+    over cfg.mesh, parallel/pfbwt_mesh.mesh_assemble_bwt), write
     .bwt[/.sa][/.ssa/.esa].  ``info`` receives
     assembly_s and the seconds of the reads and writes (write_s, added
-    to); with cfg.mmap, _run_pfbwt_stream's keys instead."""
+    to), and mesh_assemble_bwt's keys; with cfg.mmap,
+    _run_pfbwt_stream's keys instead."""
     info = {} if info is None else info
     prefix = cfg.prefix
     t0 = time.perf_counter()
@@ -160,13 +165,26 @@ def run_pfbwt(cfg: PfbwtConfig, n: Optional[int] = None, info: dict = None):
         if any_sa
         else "generating final BWT w/o SA"
     ):
-        res = engine.assemble_bwt(
-            dict_flat, cfg.w, occs.astype(np.int64), bwlast,
-            ilist.astype(np.int64), bwsai, n,
-            want_sa=cfg.sa, want_rssa=cfg.rssa, sa_dtype=cfg.dtype,
-            device=cfg.device, backend=cfg.backend,
-        )
+        if cfg.mesh is not None:
+            from .parallel.pfbwt_mesh import mesh_assemble_bwt
+
+            res = mesh_assemble_bwt(
+                dict_flat, cfg.w, occs.astype(np.int64), bwlast,
+                ilist.astype(np.int64), bwsai, n, cfg.mesh,
+                want_sa=cfg.sa, want_rssa=cfg.rssa, sa_dtype=cfg.dtype,
+                info=info,
+            )
+        else:
+            res = engine.assemble_bwt(
+                dict_flat, cfg.w, occs.astype(np.int64), bwlast,
+                ilist.astype(np.int64), bwsai, n,
+                want_sa=cfg.sa, want_rssa=cfg.rssa, sa_dtype=cfg.dtype,
+                device=cfg.device, backend=cfg.backend,
+            )
     t2 = time.perf_counter()
+    info["assembly_s"] = t2 - t1
+    if cfg.mesh is not None and cfg.mesh.rank != 0:
+        return res
     bwt_fp = _out_handle(cfg, EXT.BWT)
     bwt_fp.write(res.bwt.tobytes())
     if bwt_fp is not sys.stdout.buffer:
@@ -177,7 +195,6 @@ def run_pfbwt(cfg: PfbwtConfig, n: Optional[int] = None, info: dict = None):
         if sa_fp is not sys.stdout.buffer:
             sa_fp.close()
     _finish(cfg, n, res.nruns, res.ssa, res.esa)
-    info["assembly_s"] = t2 - t1
     info["write_s"] = (info.get("write_s", 0.0) + (t1 - t0)
                        + time.perf_counter() - t2)
     return res

@@ -13,10 +13,11 @@ The SA->MA permute consumes the SA array directly instead of a unix pipe
 
 The parse (kernel K1's cut scan), the parse-BWT, the assembly and the
 SA->MA permute run on ``cfg.device``: the staged stages of engine.py, or
-with ``cfg.fused`` the fused build of ops/fused.py.  A ``cfg.backend`` of
-``"numpy"`` (or the PFBWT_* variables, engine.py) moves the staged
-parse-BWT and assembly to the host, PFBWT_MA_BACKEND=numpy the SA->MA
-permute (markers/ma.permute_sa).
+with ``cfg.fused`` the fused build of ops/fused.py, or with ``cfg.mesh``
+the fused build over the mesh (parallel/fused_mesh.py).  A
+``cfg.backend`` of ``"numpy"`` (or the PFBWT_* variables, engine.py)
+moves the staged parse-BWT and assembly to the host,
+PFBWT_MA_BACKEND=numpy the SA->MA permute (markers/ma.permute_sa).
 
 Haplotype order matches the reference: [ref] + [sample h0, sample h1, ...]
 (vcf_to_bwt.py:191-192).
@@ -67,7 +68,9 @@ class VcfToBwtConfig:
     # the fused build (ops/fused.py) in place of the staged stages; it
     # writes no .parse/.dict checkpoint files (no host-visible parse)
     fused: bool = False
-    mesh: bool = False  # not ported: needs the parallel/ modules
+    # the fused build over the mesh (parallel/fused_mesh.py); under
+    # torchrun rank 0 scans the panel and writes every file
+    mesh: bool = False
 
 
 def _setup_logger(output: str):
@@ -152,11 +155,58 @@ def vcf_to_bwt(cfg: VcfToBwtConfig, info: dict = None):
     stage seconds (scan_s; build_s: parse, parse-BWT and assembly or the
     fused build; ma_s: the SA->MA stage, of it ma_index_s reading the
     merged .mps, ma_permute_s the permute with its upload and download,
-    ma_write_s the .ma write), n, r and ma_runs."""
-    if cfg.mesh:
-        die("vcf_to_bwt --mesh is not ported to pfbwtf_tpu_torch yet")
+    ma_write_s the .ma write), n, r and ma_runs, and with cfg.mesh the
+    fused mesh build's keys and mesh_stats (the mesh's exchanges).
+
+    With cfg.mesh every rank of the world (one rank without torchrun)
+    calls this: rank 0 scans the panel and writes every file, the other
+    ranks receive the haplotype records by a broadcast (and any failure
+    of the scan as a PfbwtError) and join the build; they return None."""
     info = {} if info is None else info
-    log = _setup_logger(cfg.output)
+    if not cfg.mesh:
+        return _vcf_to_bwt(cfg, info, None)
+    from ..parallel.sharded import make_parse_mesh
+
+    with make_parse_mesh(cfg.device) as mesh:
+        info["mesh_stats"] = mesh.stats
+        return _vcf_to_bwt(cfg, info, mesh)
+
+
+def _vcf_to_bwt(cfg: VcfToBwtConfig, info: dict, mesh):
+    root = mesh is None or mesh.rank == 0
+    log = _setup_logger(cfg.output) if root else None
+    if mesh is None:
+        all_records = _scan_panel(cfg, log, info)
+    else:
+        all_records = mesh.from_root(lambda: _scan_panel(cfg, log, info))
+    params = ParserParams(
+        w=cfg.wsize,
+        p=cfg.mod,
+        get_sai=True,
+        store_docs=True,
+        non_acgt_to_a=True,
+    )
+    want_sa_vals = cfg.sa or cfg.ma
+    t1 = time.perf_counter()
+    if cfg.fused or cfg.mesh:
+        if root and cfg.keep_parse:
+            log.info("fused pipeline: no host-visible parse exists, "
+                     ".parse/.dict checkpoint files are skipped")
+        bwt_res = _fused_stages(cfg, log, all_records, params, want_sa_vals,
+                                mesh, info)
+    else:
+        bwt_res = _staged_stages(cfg, log, all_records, params, want_sa_vals)
+    info["build_s"] = time.perf_counter() - t1
+    if not root:
+        return None
+    _write_bwt_outputs(cfg, log, bwt_res, info)
+    return bwt_res
+
+
+def _scan_panel(cfg: VcfToBwtConfig, log, info: dict):
+    """The .fai, the haplotype scans (in worker processes with --threads),
+    the scanned FASTAs with save_fasta and the merged .mps with ma;
+    returns every haplotype's records, in the reference's order."""
     write_fai(cfg.fasta)
     vcf = merge_vcfs(cfg.vcfs, contigs=cfg.contigs)
     samples = cfg.samples if cfg.samples else list(vcf.samples)
@@ -213,34 +263,30 @@ def vcf_to_bwt(cfg: VcfToBwtConfig, info: dict = None):
 
     # one parse over the whole collection == merge_pfp fold of per-haplotype
     # parses (vcf_to_bwt.py:242-248)
-    all_records = [rec for _, scan in prefixes for rec in scan.records]
-    params = ParserParams(
-        w=cfg.wsize,
-        p=cfg.mod,
-        get_sai=True,
-        store_docs=True,
-        non_acgt_to_a=True,
-    )
-    want_sa_vals = cfg.sa or cfg.ma
-    t1 = time.perf_counter()
-    if cfg.fused:
-        if cfg.keep_parse:
-            log.info("fused pipeline: no host-visible parse exists, "
-                     ".parse/.dict checkpoint files are skipped")
+    return [rec for _, scan in prefixes for rec in scan.records]
+
+
+def _fused_stages(cfg, log, all_records, params, want_sa_vals, mesh, info):
+    """parse -> parse-BWT -> assembly as one device chain: the fused build,
+    or over the mesh when there is one (None on ranks other than 0)."""
+    root = mesh is None or mesh.rank == 0
+    what = "fused mesh pipeline" if mesh is not None else \
+        "fused device pipeline"
+    if root:
+        log.info("%s over haplotype collection (%d records)", what,
+                 len(all_records))
+    with task_timer(f"{what} (parse+pfbwt)"):
+        if mesh is not None:
+            from ..parallel.fused_mesh import pfbwt_fused_mesh_records
+
+            return pfbwt_fused_mesh_records(
+                all_records, params, mesh, want_sa=want_sa_vals,
+                want_rssa=cfg.rssa, sa_dtype=cfg.dtype, info=info)
         from ..ops.fused import pfbwt_fused_records
 
-        log.info("fused device pipeline over haplotype collection "
-                 "(%d records)", len(all_records))
-        with task_timer("fused device pipeline (parse+pfbwt)"):
-            bwt_res, _ = pfbwt_fused_records(
-                all_records, params, device=cfg.device,
-                want_sa=want_sa_vals, want_rssa=cfg.rssa, sa_dtype=cfg.dtype,
-            )
-    else:
-        bwt_res = _staged_stages(cfg, log, all_records, params, want_sa_vals)
-    info["build_s"] = time.perf_counter() - t1
-    _write_bwt_outputs(cfg, log, bwt_res, info)
-    return bwt_res
+        return pfbwt_fused_records(
+            all_records, params, device=cfg.device, want_sa=want_sa_vals,
+            want_rssa=cfg.rssa, sa_dtype=cfg.dtype)[0]
 
 
 def _staged_stages(cfg, log, all_records, params, want_sa_vals):

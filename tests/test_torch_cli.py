@@ -225,11 +225,24 @@ def test_cli_formerly_refused_modes_equal_jax(tmp_path, args, monkeypatch):
     ["--mesh"], ["--fused", "-m", "--mesh"], ["--fused", "--mesh"],
 ])
 def test_cli_unported_modes_exit_1(tmp_path, args, capsys):
+    """The modes that exited 1 before the mesh family was ported
+    (--mesh, --fused -m --mesh, --fused --mesh) now run, in process as a
+    one-rank gloo world, and write the files and exit code of
+    pfbwtf_tpu's CLI on its 8-device CPU mesh; the world is gone after
+    the call."""
+    import torch.distributed as dist
+
     fa = tmp_path / "in.fa"
     _fasta(fa)
-    rc = torch_main([str(fa), "-o", str(tmp_path / "o"), *args], device="cpu")
-    assert rc == 1
-    assert "not ported" in capsys.readouterr().err
+    args = [*args, "-s", "-r"]
+    rc = torch_main([str(fa), "-o", str(tmp_path / "port"), *args],
+                    device="cpu")
+    assert not dist.is_initialized()
+    assert "not ported" not in capsys.readouterr().err
+    assert jax_main([str(fa), "-o", str(tmp_path / "jax"), *args]) == rc == 0
+    got, want = _files_of(tmp_path, "port"), _files_of(tmp_path, "jax")
+    assert got == want and ".bwt" in got and ".ssa" in got
+    assert (".dict" in got) == ("--fused" not in args)
 
 
 def test_cli_invalid_char_exits_1(tmp_path, capsys):

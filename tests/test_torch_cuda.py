@@ -398,3 +398,47 @@ def test_pod_parse_card_equals_staged(card, tmp_path):
     for ext in ELEVEN:
         assert ((tmp_path / f"pod.{ext}").read_bytes()
                 == (tmp_path / f"whole.{ext}").read_bytes()), ext
+
+
+@pytest.mark.parametrize("mode", ["staged", "fused"])
+def test_mesh_one_rank_nccl_equals_single_device(card, tmp_path, mode):
+    """pfbwt_f --mesh and --fused --mesh at 1 MB as a one-rank NCCL world
+    in this process (made and destroyed by the call): the files of the
+    single-device build, K1 launched; no world is left behind."""
+    import torch.distributed as dist
+
+    fa = _pan_fasta(tmp_path / "in.fa", 43, 1 << 17, 8)
+    fused = ["--fused"] if mode == "fused" else []
+    assert cli_main([fa, "-o", str(tmp_path / "one"), "-s", "-r",
+                     *fused]) == 0
+    before = k1.launches
+    assert cli_main([fa, "-o", str(tmp_path / "mesh"), "-s", "-r", "--mesh",
+                     *fused]) == 0
+    torch.cuda.synchronize()
+    assert k1.launches > before
+    assert not dist.is_initialized()
+    for ext in (("bwt", "sa", "ssa", "esa") if fused else ELEVEN):
+        assert ((tmp_path / f"mesh.{ext}").read_bytes()
+                == (tmp_path / f"one.{ext}").read_bytes()), ext
+
+
+def test_multihost_union_parse_one_rank_nccl_scans_on_card(card, tmp_path):
+    """multihost_union_parse as a one-rank NCCL world (made and destroyed
+    by the call): the stream's cut scan is one K1 launch on the card, and
+    the checkpoint files are those of the single-device parse."""
+    import torch.distributed as dist
+
+    from pfbwtf_tpu_torch.parallel.multihost import multihost_union_parse
+
+    fa = _pan_fasta(tmp_path / "in.fa", 44, 1 << 17, 8)
+    assert cli_main([fa, "-o", str(tmp_path / "one"), "-s",
+                     "--parse-only"]) == 0
+    before = k1.launches
+    multihost_union_parse(fa, str(tmp_path / "mu"),
+                          ParserParams(w=10, p=100, get_sai=True))
+    torch.cuda.synchronize()
+    assert k1.launches == before + 1
+    assert not dist.is_initialized()
+    for ext in ("dict", "occ", "parse", "n", "bwlast", "ilist", "bwsai"):
+        assert ((tmp_path / f"mu.{ext}").read_bytes()
+                == (tmp_path / f"one.{ext}").read_bytes()), ext

@@ -79,6 +79,62 @@ def test_dict_suffix_sort_native_equals_jax(seed):
     assert got[3] == want[3]
 
 
+@pytest.mark.parametrize("seed,w,p", [(23, 8, 11), (24, 10, 100), (25, 4, 5)])
+def test_suffix_group_ids_np_equals_jax(seed, w, p):
+    """The hash-and-verify suffix groups of a real dict (the staged
+    mesh's and the host path's) equal pfbwtf_tpu's."""
+    from pfbwtf_tpu_torch.ops.suffix_np import (dict_suffix_sort_np,
+                                                suffix_group_ids_np)
+
+    flat = engine.parse_records(_records(seed), ParserParams(w=w, p=p),
+                                device="cpu").dict_flat()
+    sa, _, suf_len, _ = dict_suffix_sort_np(flat)
+    kept = sa[suf_len[sa] > w]
+    got = suffix_group_ids_np(flat, kept, suf_len)
+    assert np.array_equal(got, jax_suffix.suffix_group_ids_np(flat, kept,
+                                                               suf_len))
+    assert got[-1] < kept.shape[0] - 1  # some suffixes share a group
+
+
+# (suffix starts, lengths): every pair of neighbours has one length, so
+# with the hashes forced equal each pair is claimed equal and only the
+# byte check decides; "ACGTA"/"ACGTC" differ at the last byte of the
+# longest pair, "GA"/"GC" at the last byte of the shortest
+_TEXT = b"#ACGTA#ACGTA#ACGTC#GA#GA#GC#"
+_VERIFY = {
+    "equal": ([1, 7, 19, 22], [5, 5, 2, 2], None),
+    "longest_last_byte": ([1, 13, 19, 22], [5, 5, 2, 2], AssertionError),
+    "shortest_last_byte": ([1, 7, 19, 25], [5, 5, 2, 2], AssertionError),
+    "first_byte": ([2, 19], [2, 2], AssertionError),
+}
+
+
+@pytest.mark.parametrize("name", list(_VERIFY))
+def test_suffix_group_ids_np_verifies_every_byte(monkeypatch, name):
+    """With every hash forced equal, a claimed-equal pair that differs in
+    any byte up to its last raises, as pfbwtf_tpu's does, and truly equal
+    pairs share their group."""
+    from pfbwtf_tpu_torch.ops import suffix_np
+
+    flat = np.frombuffer(_TEXT, np.uint8)
+    starts, lens, err = _VERIFY[name]
+    suf_len = np.zeros(flat.shape[0], np.int64)
+    suf_len[starts] = lens
+    kept = np.asarray(starts, np.int64)
+
+    def zero(dict_flat, sl, base):
+        return np.zeros(dict_flat.shape[0], np.uint64)
+
+    for mod in (suffix_np, jax_suffix):
+        monkeypatch.setattr(mod, "_segmented_suffix_hashes_np", zero)
+        if err is None:
+            gid = mod.suffix_group_ids_np(flat, kept, suf_len)
+            assert gid.tolist() == [0, 0, 1, 1]
+        else:
+            with pytest.raises(err, match="collision"):
+                mod.suffix_group_ids_np(flat, kept, suf_len)
+
+
 CASES = [(31, 10, 100), (32, 6, 17), (33, 4, 7)]
 
 

@@ -73,17 +73,55 @@ NEW_MODULES = (
     "ops.bwt", "ops.parse_bwt", "cli.merge_pfp", "cli.simplebwt",
     "cli.consensus", "cli.dump_markers", "cli.readable_sa",
     "cli.readable_markers", "cli.dump_intfile", "parallel.driver",
-    "utils.malloc_tuning",
+    "utils.malloc_tuning", "parallel.sharded", "parallel.dsort",
+    "parallel.pfbwt_mesh", "parallel.fused_mesh", "parallel.multihost",
 )
 
 
 @pytest.mark.parametrize("name", NEW_MODULES)
 def test_staged_and_probe_modules_are_checked(name):
     """The AST check above covers the modules of the staged build, the
-    probe, vcf_to_bwt, the merge, the host assembly and the host tools (it
-    walks the package)."""
+    probe, vcf_to_bwt, the merge, the host assembly, the host tools and
+    the mesh family (it walks the package)."""
     path = os.path.join(PKG, *name.split(".")) + ".py"
     assert path in list(_port_sources())
+
+
+def test_parallel_import_makes_no_process_group():
+    """Importing the mesh family (and every module of the port) makes no
+    torch.distributed world; only a mesh call does."""
+    code = (
+        "import importlib, pkgutil\n"
+        "import torch.distributed as dist\n"
+        "import pfbwtf_tpu_torch, pfbwtf_tpu_torch.parallel\n"
+        "for m in pkgutil.walk_packages(pfbwtf_tpu_torch.__path__,"
+        " 'pfbwtf_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert dist.is_available() and not dist.is_initialized()\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+
+
+def test_mesh_default_device_raises_without_a_card():
+    """make_parse_mesh takes the card unless asked for the CPU, and makes
+    no world when it cannot."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    import torch.distributed as dist
+
+    from pfbwtf_tpu_torch.parallel.sharded import make_parse_mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_parse_mesh()
+    assert not dist.is_initialized()
+    with make_parse_mesh("cpu") as mesh:
+        assert (mesh.rank, mesh.size, mesh.device.type) == (0, 1, "cpu")
+        assert dist.is_initialized()
+    assert not dist.is_initialized()
 
 
 def test_default_device_raises_without_a_card():
@@ -157,7 +195,8 @@ def test_chip_smoke_refuses_without_a_card():
     assert '"ok"' not in proc.stdout
 
 
-def test_import_tunes_no_malloc_the_build_clis_do(tmp_path, monkeypatch):
+def test_import_tunes_no_malloc_the_build_clis_do(tmp_path, monkeypatch,
+                                                 capsys):
     """Importing every module of the port leaves glibc's malloc alone
     (pfbwtf_tpu tunes it at import); the build CLIs tune it first thing,
     and so does each of the pod parse's shard parses."""
@@ -199,5 +238,8 @@ def test_import_tunes_no_malloc_the_build_clis_do(tmp_path, monkeypatch):
     assert calls == [1, 2, 2]  # the CLI, then each in-process shard
     assert merge_pfp.main([str(fa), "-o", str(tmp_path / "m")],
                           device="cpu") == 0
-    assert vcf_to_bwt.main(["--mesh", str(fa), "v.vcf"], device="cpu") == 1
+    # exit 1 from the missing panel (the mesh's rank 0 reads it first)
+    assert vcf_to_bwt.main(["--mesh", str(fa), str(tmp_path / "v.vcf"),
+                            "-o", str(tmp_path / "v")], device="cpu") == 1
+    assert "v.vcf" in capsys.readouterr().err
     assert calls == [1, 2, 2, 1, 1]

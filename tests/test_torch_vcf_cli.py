@@ -70,10 +70,21 @@ def test_vcf_to_bwt_cli_equals_jax(tmp_path, extra):
 
 
 def test_vcf_to_bwt_cli_mesh_exits_1(tmp_path, capsys):
+    """vcf_to_bwt --mesh, which exited 1 before the mesh family was
+    ported, runs the fused mesh build (a one-rank gloo world in process)
+    and writes pfbwtf_tpu's files with its exit code."""
     fa, vcf = _panel(tmp_path)
-    assert vcf_to_bwt.main([fa, vcf, "-o", str(tmp_path / "o"), "--mesh"],
-                           device="cpu") == 1
-    assert "not ported" in capsys.readouterr().err
+    args = ["--mesh", "-s", "-r", "-m"]
+    codes = []
+    for name, main, kw in (("jax", jax_vcf_to_bwt.main, {}),
+                           ("port", vcf_to_bwt.main, {"device": "cpu"})):
+        shutil.copy(fa, tmp_path / f"{name}.fa")
+        codes.append(main([str(tmp_path / f"{name}.fa"), vcf, "-o",
+                           str(tmp_path / name), *args], **kw))
+    assert codes == [0, 0]
+    assert "not ported" not in capsys.readouterr().err
+    assert {"bwt", "sa", "ssa", "esa", "ma", "mps"} <= set(
+        _assert_same_files(tmp_path))
 
 
 def _scan_cli(tmp_path, fa, vcf, name, main, args):

@@ -11,7 +11,6 @@ import pytest
 from pfbwtf_tpu.io.fasta import read_fasta_bytes
 from pfbwtf_tpu.vcf.pipeline import VcfToBwtConfig as JaxConfig
 from pfbwtf_tpu.vcf.pipeline import vcf_to_bwt as jax_vcf_to_bwt
-from pfbwtf_tpu_torch.utils.errors import PfbwtError
 from pfbwtf_tpu_torch.vcf.pipeline import VcfToBwtConfig, vcf_to_bwt
 
 from .ref_fixtures import random_fasta
@@ -147,7 +146,13 @@ def test_threads_equal_serial(tmp_path):
 
 
 def test_mesh_is_not_ported(tmp_path):
+    """cfg.mesh, which raised "not ported" before the mesh family was
+    ported, runs the fused mesh build (a one-rank gloo world, gone after
+    the call) and writes every file of pfbwtf_tpu's mesh run."""
+    import torch.distributed as dist
+
     fa, vcfs = _panel(tmp_path, seed=95)
-    with pytest.raises(PfbwtError, match="not ported"):
-        vcf_to_bwt(VcfToBwtConfig(fasta=fa, vcfs=vcfs, mesh=True,
-                                  output=str(tmp_path / "o"), device="cpu"))
+    exts = _run_both(tmp_path, fa, vcfs, mesh=True, ma=True, sa=True,
+                     rssa=True)
+    assert not dist.is_initialized()
+    assert {"bwt", "sa", "ssa", "esa", "ma", "mps"} <= set(exts)
