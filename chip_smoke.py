@@ -625,16 +625,14 @@ def phase_small():
 
 
 def phase_main(records, C):
-    """The 64 MB pan-genome fused build with K1's count read around it."""
+    """The 64 MB pan-genome fused build with the build's counters."""
     import torch
 
-    from pfbwtf_tpu_torch.ops.cuda import hash_scan as k1
     from pfbwtf_tpu_torch.ops.fused import pfbwt_fused_records
     from pfbwtf_tpu_torch.ops.parse import ParserParams
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k1.launches = 0
     t0 = time.perf_counter()
     res, info = pfbwt_fused_records(
         records, ParserParams(w=W, p=P), device="cuda", want_sa=True,
@@ -642,7 +640,7 @@ def phase_main(records, C):
     )
     torch.cuda.synchronize()
     e2e = time.perf_counter() - t0
-    launches = k1.launches
+    launches = info["counts"].get("k1_launches", 0)
     peak = torch.cuda.max_memory_allocated()
     print(f"64 MB J2 seconds: {info['j2_s']:.4f} ({info['j2_runs']} run)")
     print(f"64 MB J3 seconds: {info['j3_s']:.4f}")
@@ -656,7 +654,8 @@ def phase_main(records, C):
     print(f"64 MB n={info['n']} r={info['r']} checksum={info['checksum']} "
           f"nphrases={info['nphrases']} D={info['D']} "
           f"dict_b={info['dict_b']} rounds={info['rounds']}")
-    print(f"64 MB K1 launches: {launches}")
+    print(f"64 MB K1 launches: {launches}; the build's counts "
+          f"{info['counts']}")
     check(launches >= 1, "the main path did not launch K1")
     t1 = time.perf_counter()
     check_bwt_sa(C, res.bwt, res.sa, "cuda")
@@ -1122,23 +1121,20 @@ MAIN_CHECKSUM = 2251810500740011  # phase 5's, the default engines'
 
 
 def fused_engine_run(C, pairs=()):
-    """The 64 MB fused build under the variables ``pairs``, with K1's
-    count set to 0 just before and read just after.  Returns (result,
-    info, launches, seconds, peak bytes)."""
+    """The 64 MB fused build under the variables ``pairs``.  Returns
+    (result, info, the build's K1 launches, seconds, peak bytes)."""
     import torch
 
-    from pfbwtf_tpu_torch.ops.cuda import hash_scan as k1
     from pfbwtf_tpu_torch.ops.fused import pfbwt_fused_device
 
     with mock.patch.dict(os.environ, dict(pairs)):
         fresh_memory()
-        k1.launches = 0
         t0 = time.perf_counter()
         res, info = pfbwt_fused_device(C, W, P, device="cuda", want_sa=True,
                                        want_rssa=True)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-    return (res, info, k1.launches, secs,
+    return (res, info, info["counts"].get("k1_launches", 0), secs,
             torch.cuda.max_memory_allocated())
 
 

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.timer import host_read
 from .rle_window import RleWindowArray
 
 
@@ -42,7 +43,7 @@ def marker_array_from_sa_dev(sa, mai: RleWindowArray, device="cuda"):
     boundary = torch.ones(n, dtype=torch.bool, device=dev)
     torch.ne(cid[1:], cid[:-1], out=boundary[1:])
     pos = torch.nonzero(boundary).flatten()
-    rows = torch.stack((pos, cid[pos], idx[pos])).cpu().numpy()
+    rows = host_read(torch.stack((pos, cid[pos], idx[pos]))).numpy()
     pos, cid, ridx = rows
     run_ends = np.concatenate((pos[1:] - 1, [n - 1]))
     sel = cid >= 0

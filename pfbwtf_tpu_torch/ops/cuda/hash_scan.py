@@ -3,7 +3,8 @@
 ``cut_scan`` takes a uint8 code tensor on a CUDA card and launches K1 on
 the current stream (no synchronisation) or raises.  Its plain version is
 ops/hash.py::hash_scan, which ops/hash.py::cut_mask runs for a CPU
-tensor.  ``launches`` counts the kernel launches.
+tensor.  ``launches`` counts the kernel launches, and each is counted as
+``k1_launches`` in the open build (utils/timer).
 ``divisibility_constants`` is the host half of K1's ``% p == 0`` test and
 needs no card.
 """
@@ -13,6 +14,7 @@ import ctypes
 import torch
 
 from ...constants import MAX_W
+from ...utils.timer import count
 from . import build
 
 launches = 0
@@ -73,4 +75,5 @@ def cut_scan(codes: torch.Tensor, w: int, p: int) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"cut_scan kernel launch failed: CUDA error {rc}")
     launches += 1
+    count("k1_launches")
     return cut

@@ -34,7 +34,6 @@ PFBWT_EMIT_WIDE (only the staged build's stage 3 does).
 """
 
 import os
-import time
 
 import numpy as np
 import torch
@@ -43,6 +42,7 @@ from ..constants import Dollar, EndOfDict, EndOfWord
 from ..utils.device import resolve_device
 from ..utils.errors import die
 from ..utils.tables import codes_or_die, ntoa_codes
+from ..utils.timer import build, host_read, span
 from . import suffix
 from .bwt import bwt_result
 from .bwt_dev import _exclusive_cumsum, _set_drop, assemble_core, dict_sort_part
@@ -294,7 +294,7 @@ def _parse_core_stream(chars_p, C_len: int, w: int, p: int, nph_b: int,
     lo_e = torch.searchsorted(torch.where(valid, e_cl, sent), grid)
     m_over = torch.maximum((lo_s[1:] - lo_s[:-1]).max(),
                            (lo_e[1:] - lo_e[:-1]).max())
-    lo_s, lo_e = torch.stack((lo_s, lo_e)).tolist()  # one read for the pass
+    lo_s, lo_e = host_read(torch.stack((lo_s, lo_e))).tolist()  # one read
     pad = torch.zeros(m_max, dtype=torch.int64, device=dev)
     s_q, e_q = torch.cat((s_cl, pad)), torch.cat((e_cl, pad))
     hashes = []
@@ -336,9 +336,11 @@ def _rerun_until_held(j2, nph_b: int, m_max: int = 0):
     cuts.  Returns (state, [ncuts, D, dict_total, max_len], runs)."""
     runs = 0
     while True:
-        state = j2(nph_b, m_max)
+        with span("j2.run"):
+            state = j2(nph_b, m_max)
         runs += 1
-        meta = state[-1].tolist()  # host sync
+        with span("j2.sizes_read"):
+            meta = host_read(state[-1]).tolist()
         ncuts = meta[0]
         m_over = meta[4] if len(meta) > 4 else 0
         if ncuts == 0:
@@ -384,43 +386,51 @@ def _j3_prep_core(Tp, parse_ranks, occs, dict_start, dict_len, last, sai,
     nph_b = parse_ranks.shape[0]
     tb = Tp.shape[0]
     r = torch.arange(nph_b, device=dev)
-    # word r spans [bounds[r]-contrib[r], bounds[r]) with its EndOfWord at
-    # bounds[r]-1; EndOfDict terminator and zero pads after.  Word of each
-    # position: word ids scattered at word starts + cummax.
-    contrib = torch.where(r < D, dict_len + 1, 0)
-    wstart = torch.cumsum(contrib, 0) - contrib
     pidx = torch.arange(dict_b, device=dev)
-    mark = _set_drop(dict_b, torch.where(r < D, wstart, dict_b), r + 1, dev)
-    word = torch.clamp(torch.cummax(mark, 0).values - 1, 0, nph_b - 1)
-    within = pidx - wstart[word]
-    src = torch.clamp(dict_start[word] + within, 0, tb - 1)
-    ch = torch.where(within < dict_len[word], Tp[src], EndOfWord)
-    dict_flat = torch.where(pidx < dict_total - 1, ch, EndOfDict)
-    del mark, word, within, src, ch
+    with span("j3.dict_flat"):
+        # word r spans [bounds[r]-contrib[r], bounds[r]) with its
+        # EndOfWord at bounds[r]-1; EndOfDict terminator and zero pads
+        # after.  Word of each position: word ids scattered at word
+        # starts + cummax.
+        contrib = torch.where(r < D, dict_len + 1, 0)
+        wstart = torch.cumsum(contrib, 0) - contrib
+        mark = _set_drop(dict_b, torch.where(r < D, wstart, dict_b), r + 1,
+                         dev)
+        word = torch.clamp(torch.cummax(mark, 0).values - 1, 0, nph_b - 1)
+        within = pidx - wstart[word]
+        src = torch.clamp(dict_start[word] + within, 0, tb - 1)
+        ch = torch.where(within < dict_len[word], Tp[src], EndOfWord)
+        dict_flat = torch.where(pidx < dict_total - 1, ch, EndOfDict)
+        del mark, word, within, src, ch
 
-    # word-start suffixes appear in SA order in byte-lex word order
-    # (prefix-free), which recovers the true ranks
-    ss = dict_sort_part(dict_flat, w, n_levels=n_levels, alphabet=alphabet)
-    sa_all, word_id = ss[0], ss[4]
-    prev_sep0 = torch.ones(dict_b, dtype=torch.bool, device=dev)
-    prev_sep0[1:] = dict_flat[:-1] <= 1
-    is_wstart = prev_sep0 & (pidx < dict_total - 1)
-    wsa = compact_indices(is_wstart[sa_all], nph_b, fill=0)
-    prov_in_lex = word_id[torch.clamp(sa_all[wsa], 0, dict_b - 1)]
-    lex_valid = r < D
-    prov_c = torch.clamp(prov_in_lex, 0, nph_b - 1)
-    lex_of_prov = _set_drop(nph_b, torch.where(lex_valid, prov_c, nph_b), r, dev)
-    ranks_true = torch.where(
-        parse_ranks > 0,
-        lex_of_prov[torch.clamp(parse_ranks - 1, 0, nph_b - 1)] + 1,
-        0,
-    )
-    bwlast, ilist, bwsai, _ = parse_bwt_core(ranks_true, last, sai, nphrases)
-    # ilist segment starts live in lex rank space; permute them to the
-    # provisional word ids the dict (and its suffixes' word_id) carry
-    occs_lex = torch.where(lex_valid, occs[prov_c], 0)
-    seg_lex = 1 + _exclusive_cumsum(occs_lex)
-    seg_prov = seg_lex[torch.clamp(lex_of_prov, 0, nph_b - 1)]
+    with span("j3.dict_sort"):
+        ss = dict_sort_part(dict_flat, w, n_levels=n_levels,
+                            alphabet=alphabet)
+    with span("j3.ranks_bwt"):
+        # word-start suffixes appear in SA order in byte-lex word order
+        # (prefix-free), which recovers the true ranks
+        sa_all, word_id = ss[0], ss[4]
+        prev_sep0 = torch.ones(dict_b, dtype=torch.bool, device=dev)
+        prev_sep0[1:] = dict_flat[:-1] <= 1
+        is_wstart = prev_sep0 & (pidx < dict_total - 1)
+        wsa = compact_indices(is_wstart[sa_all], nph_b, fill=0)
+        prov_in_lex = word_id[torch.clamp(sa_all[wsa], 0, dict_b - 1)]
+        lex_valid = r < D
+        prov_c = torch.clamp(prov_in_lex, 0, nph_b - 1)
+        lex_of_prov = _set_drop(nph_b, torch.where(lex_valid, prov_c, nph_b),
+                                r, dev)
+        ranks_true = torch.where(
+            parse_ranks > 0,
+            lex_of_prov[torch.clamp(parse_ranks - 1, 0, nph_b - 1)] + 1,
+            0,
+        )
+        bwlast, ilist, bwsai, _ = parse_bwt_core(ranks_true, last, sai,
+                                                 nphrases)
+        # ilist segment starts live in lex rank space; permute them to the
+        # provisional word ids the dict (and its suffixes' word_id) carry
+        occs_lex = torch.where(lex_valid, occs[prov_c], 0)
+        seg_lex = 1 + _exclusive_cumsum(occs_lex)
+        seg_prov = seg_lex[torch.clamp(lex_of_prov, 0, nph_b - 1)]
     return dict_flat, ss, bwlast, ilist, bwsai, seg_prov
 
 
@@ -436,8 +446,9 @@ def _final_core(Tp, parse_ranks, occs, dict_start, dict_len, last, sai,
         nphrases, D, dict_total, w, dict_b, n_levels=n_levels,
         alphabet=alphabet,
     )
-    return _j3_emit_core(*prep, occs, nsuf_true, total_true, w, nsuf_b,
-                         total_b, fanout=fanout, impl=impl)
+    with span("j3.emit"):
+        return _j3_emit_core(*prep, occs, nsuf_true, total_true, w, nsuf_b,
+                             total_b, fanout=fanout, impl=impl)
 
 
 def _j3_emit_core(dict_flat, ss, bwlast, ilist, bwsai, seg_prov, occs,
@@ -496,68 +507,82 @@ def pfbwt_fused_device(C: np.ndarray, w: int, p: int, want_sa: bool = False,
     """Whole-pipeline run over the padded char stream C on ``device``.
 
     Returns ``(BWTResult, info)``.  ``info`` holds the sizes, the doubling
-    round counts, the checksum and wall seconds: host_s (input check and
-    padding), j2_s (upload + J2, ending in the host read of its sizes),
-    j3_s (J3, ending in the checksum read) and fetch_s (download +
-    run-length sampling)."""
-    dev = resolve_device(device)
-    t_start = time.perf_counter()
-    codes_or_die(C)
-    alphabet = dict_alphabet(C)
+    round counts, the checksum and the seconds of its stage spans
+    (utils/timer): host_s (``host_prep``: input check and padding), j2_s
+    (``j2``: upload + J2, ending in the host read of its sizes), j3_s
+    (``j3``: J3, ending in the checksum read) and fetch_s (``fetch``:
+    download_s + sample_s, the run-length sampling); as the outermost
+    entry point also spans, counts and build_id."""
+    info = {}
+    with build(info):
+        dev = resolve_device(device)
+        with span("host_prep") as host:
+            codes_or_die(C)
+            alphabet = dict_alphabet(C)
+            C_len = int(C.shape[0])
+            # text length incl. per-record pads (pfparser.hpp:529-532)
+            n = C_len
+            n_b = _bucket(max(C_len, 1), 1 << 16)
+            chars_p = np.empty(n_b, dtype=np.uint8)
+            chars_p[:C_len] = C
+            chars_p[C_len:] = ord("A")
 
-    C_len = int(C.shape[0])
-    n = C_len  # text length incl. per-record pads (pfparser.hpp:529-532)
-    n_b = _bucket(max(C_len, 1), 1 << 16)
-    chars_p = np.empty(n_b, dtype=np.uint8)
-    chars_p[:C_len] = C
-    chars_p[C_len:] = ord("A")
-    t0 = time.perf_counter()
-    chars = torch.from_numpy(chars_p).to(dev)
+        with span("j2") as j2:
+            with span("j2.upload"):
+                chars = torch.from_numpy(chars_p).to(dev)
+            state, (ncuts, D, dict_total, max_len), j2_runs = run_parse(
+                chars, C_len, w, p, _bucket(speculative_nphrases(C_len, p)))
+            nph_b = state[1].shape[0]
 
-    state, (ncuts, D, dict_total, max_len), j2_runs = run_parse(
-        chars, C_len, w, p, _bucket(speculative_nphrases(C_len, p)))
-    nph_b = state[1].shape[0]
-    t1 = time.perf_counter()
-    del chars
-    nphrases = ncuts + 1
-    n_levels = capture_levels(max_len, w, alphabet)
-    nsuf = (dict_total - 1 - D) - D * w
-    total = n + 1
-    dict_b, nsuf_b, total_b = _bucket(dict_total), _bucket(nsuf), _bucket(total)
-    engines = dict(fanout=fanout_impl(), impl=sort_impl())
-    bwt_d, sa_d, checksum_d = _final_core(
-        *state[:-1], nphrases, D, dict_total, nsuf, total, w, dict_b,
-        nsuf_b, total_b, n_levels=n_levels, alphabet=alphabet, **engines,
-    )
-    del state
-    checksum = int(checksum_d) & _MASK64  # host sync
-    t2 = time.perf_counter()
-    info = {
-        "n": n, "n_b": n_b, "nphrases": nphrases, "nph_b": nph_b, "D": D,
-        "dict_total": dict_total, "dict_b": dict_b, "nsuf": nsuf,
-        "n_levels": n_levels, "alphabet": alphabet, **engines,
-        "j2_runs": j2_runs, "host_s": t0 - t_start,
-        "j2_s": t1 - t0, "j3_s": t2 - t1, "checksum": checksum,
-        "rounds": dict(suffix.rounds),
-    }
-    sa_d[0] = n
-    sa_np = (sa_d[:total].cpu().numpy().view(np.uint64)
-             if want_sa or want_rssa else None)
-    res = bwt_result(bwt_d[:total].cpu().numpy(), sa_np, want_sa, want_rssa,
-                     sa_dtype)
-    info["r"] = res.nruns
-    info["fetch_s"] = time.perf_counter() - t2
+        with span("j3") as j3:
+            del chars
+            nphrases = ncuts + 1
+            n_levels = capture_levels(max_len, w, alphabet)
+            nsuf = (dict_total - 1 - D) - D * w
+            total = n + 1
+            dict_b, nsuf_b = _bucket(dict_total), _bucket(nsuf)
+            total_b = _bucket(total)
+            engines = dict(fanout=fanout_impl(), impl=sort_impl())
+            bwt_d, sa_d, checksum_d = _final_core(
+                *state[:-1], nphrases, D, dict_total, nsuf, total, w,
+                dict_b, nsuf_b, total_b, n_levels=n_levels,
+                alphabet=alphabet, **engines,
+            )
+            del state
+            with span("j3.checksum_read"):
+                checksum = int(host_read(checksum_d)) & _MASK64
+        info.update({
+            "n": n, "n_b": n_b, "nphrases": nphrases, "nph_b": nph_b,
+            "D": D, "dict_total": dict_total, "dict_b": dict_b, "nsuf": nsuf,
+            "n_levels": n_levels, "alphabet": alphabet, **engines,
+            "j2_runs": j2_runs, "host_s": host.seconds, "j2_s": j2.seconds,
+            "j3_s": j3.seconds, "checksum": checksum,
+            "rounds": dict(suffix.rounds),
+        })
+        with span("fetch") as fetch:
+            with span("fetch.download") as download:
+                sa_d[0] = n
+                sa_np = (host_read(sa_d[:total]).numpy().view(np.uint64)
+                         if want_sa or want_rssa else None)
+                bwt_np = host_read(bwt_d[:total]).numpy()
+            with span("fetch.sample") as sample:
+                res = bwt_result(bwt_np, sa_np, want_sa, want_rssa, sa_dtype)
+        info.update(r=res.nruns, fetch_s=fetch.seconds,
+                    download_s=download.seconds, sample_s=sample.seconds)
     return res, info
 
 
 def pfbwt_fused_records(records, params, device="cuda", **kw):
     """Fused run over FASTA records (build_stream + pfbwt_fused_device);
-    ``info["stream_s"]`` is the wall time of build_stream."""
+    ``info["stream_s"]`` is the wall time of build_stream (span
+    ``stream``)."""
     from .parse import build_stream
 
-    t0 = time.perf_counter()
-    C, _, _ = build_stream(records, params)
-    stream_s = time.perf_counter() - t0
-    res, info = pfbwt_fused_device(C, params.w, params.p, device=device, **kw)
-    info["stream_s"] = stream_s
+    info = {}
+    with build(info):
+        with span("stream") as stream:
+            C, _, _ = build_stream(records, params)
+        res, fused_info = pfbwt_fused_device(C, params.w, params.p,
+                                             device=device, **kw)
+    info.update(fused_info, stream_s=stream.seconds)
     return res, info

@@ -5,9 +5,10 @@ dense-rank doubling that sorts the parse, and the dict doubling with
 exact rank-block captures, byte-packed or 3-bit-packed (acgt3) keys and
 the opt-in subset-refinement schedule.  Each round is one stable
 ``torch.sort`` of a packed (rank, rank[i+k]) key; the loop condition
-reads one or two scalars per round.  ``rounds`` records how many rounds
-the last call of each doubling took (``dict_sa_subset``: how many of
-them were subset rounds).
+reads one or two scalars per round (each a counted host read,
+utils/timer).  ``rounds`` records how many rounds the last call of each
+doubling took (``dict_sa_subset``: how many of them were subset rounds);
+the open build counts them all as ``rounds``.
 
 The opt-in engine variables are read at call time, as in pfbwtf_tpu:
 
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 
 from ..constants import EndOfDict
+from ..utils.timer import count, host_read
 
 rounds = {"parse_sa": 0, "dict_sa": 0, "dict_sa_subset": 0}
 
@@ -109,11 +111,12 @@ def _doubling(keys: torch.Tensor):
 
     rank = rank_of(keys.to(torch.int64))
     k, nround = 1, 0
-    while k < n and int(rank.max()) < n - 1:
+    while k < n and int(host_read(rank.max())) < n - 1:
         rank = rank_of(_pair_key(rank, k))
         k *= 2
         nround += 1
     rounds["parse_sa"] = nround
+    count("rounds", nround)
     return torch.argsort(rank, stable=True), rank
 
 
@@ -294,7 +297,7 @@ def doubling_with_captures(keys: torch.Tensor, cap_len: torch.Tensor,
         last counted only for the subset schedule (else n)."""
         cks, order = torch.sort(ck, stable=True)
         rank, counts = _posrank(cks, order, idx, use_subset)
-        got = counts.tolist()
+        got = host_read(counts).tolist()
         return rank, got[0], got[1] if use_subset else n
 
     if fp_word is None or t_min is None:
@@ -335,13 +338,14 @@ def doubling_with_captures(keys: torch.Tensor, cap_len: torch.Tensor,
         pos_u = torch.nonzero(hist[rank_c] > 1).flatten()
         del rank_c, hist
         while k < n and n_groups < n:
-            n_groups += int(_subset_round(rank, pos_u, k, B))
+            n_groups += int(host_read(_subset_round(rank, pos_u, k, B)))
             k *= 2
             nround += 1
             nsub += 1
             write_row(k)
     rounds["dict_sa"] = nround
     rounds["dict_sa_subset"] = nsub
+    count("rounds", nround)
     lvl_q = _log2_pow2(t) - log2tmin
     ok = (lvl_q <= int(np.log2(k)) - log2k0 + n_fp) & (lvl_q < n_levels)
     lvl_c = torch.clamp(lvl_q, 0, n_levels - 1)

@@ -25,7 +25,6 @@ Haplotype order matches the reference: [ref] + [sample h0, sample h1, ...]
 
 import os
 import sys
-import time
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -40,7 +39,7 @@ from ..markers.rle_window import RleWindowArray
 from ..ops.parse import ParserParams
 from ..pipeline import save_parser
 from ..utils.errors import die
-from ..utils.timer import task_timer
+from ..utils.timer import build, span, task_timer
 from .reader import merge_vcfs
 from .scan import write_scan_outputs
 from .scan_worker import scan_task
@@ -152,24 +151,30 @@ def _scan_subprocess(vcf, scan_args: dict, tasks, nworkers: int,
 
 def vcf_to_bwt(cfg: VcfToBwtConfig, info: dict = None):
     """The whole pipeline; returns the BWTResult.  ``info`` receives the
-    stage seconds (scan_s; build_s: parse, parse-BWT and assembly or the
-    fused build; ma_s: the SA->MA stage, of it ma_index_s reading the
-    merged .mps, ma_permute_s the permute with its upload and download,
-    ma_write_s the .ma write), n, r and ma_runs, and with cfg.mesh the
-    fused mesh build's keys and mesh_stats (the mesh's exchanges).
+    seconds of the stage spans (utils/timer): fai_s (``vcf.fai``), read_s
+    (``vcf.read``: the VCF read), scan_s (``vcf.scan``), mps_s
+    (``vcf.mps``: the merged .mps, with cfg.ma), build_s (``vcf.build``:
+    parse, parse-BWT and assembly or the fused build), write_s
+    (``vcf.write``: .bwt/.sa/.ssa/.esa) and ma_s (``vcf.ma``: the SA->MA
+    stage, of it ma_index_s reading the merged .mps, ma_permute_s the
+    permute with its upload and download, ma_write_s the .ma write); n, r
+    and ma_runs; the fused build's keys (ops/fused) with cfg.fused, the
+    fused mesh build's and mesh_stats (the mesh's exchanges) with
+    cfg.mesh; and spans, counts and build_id.
 
     With cfg.mesh every rank of the world (one rank without torchrun)
     calls this: rank 0 scans the panel and writes every file, the other
     ranks receive the haplotype records by a broadcast (and any failure
     of the scan as a PfbwtError) and join the build; they return None."""
     info = {} if info is None else info
-    if not cfg.mesh:
-        return _vcf_to_bwt(cfg, info, None)
-    from ..parallel.sharded import make_parse_mesh
+    with build(info):
+        if not cfg.mesh:
+            return _vcf_to_bwt(cfg, info, None)
+        from ..parallel.sharded import make_parse_mesh
 
-    with make_parse_mesh(cfg.device) as mesh:
-        info["mesh_stats"] = mesh.stats
-        return _vcf_to_bwt(cfg, info, mesh)
+        with make_parse_mesh(cfg.device) as mesh:
+            info["mesh_stats"] = mesh.stats
+            return _vcf_to_bwt(cfg, info, mesh)
 
 
 def _vcf_to_bwt(cfg: VcfToBwtConfig, info: dict, mesh):
@@ -187,16 +192,17 @@ def _vcf_to_bwt(cfg: VcfToBwtConfig, info: dict, mesh):
         non_acgt_to_a=True,
     )
     want_sa_vals = cfg.sa or cfg.ma
-    t1 = time.perf_counter()
-    if cfg.fused or cfg.mesh:
-        if root and cfg.keep_parse:
-            log.info("fused pipeline: no host-visible parse exists, "
-                     ".parse/.dict checkpoint files are skipped")
-        bwt_res = _fused_stages(cfg, log, all_records, params, want_sa_vals,
-                                mesh, info)
-    else:
-        bwt_res = _staged_stages(cfg, log, all_records, params, want_sa_vals)
-    info["build_s"] = time.perf_counter() - t1
+    with span("vcf.build") as stage:
+        if cfg.fused or cfg.mesh:
+            if root and cfg.keep_parse:
+                log.info("fused pipeline: no host-visible parse exists, "
+                         ".parse/.dict checkpoint files are skipped")
+            bwt_res = _fused_stages(cfg, log, all_records, params,
+                                    want_sa_vals, mesh, info)
+        else:
+            bwt_res = _staged_stages(cfg, log, all_records, params,
+                                     want_sa_vals)
+    info["build_s"] = stage.seconds
     if not root:
         return None
     _write_bwt_outputs(cfg, log, bwt_res, info)
@@ -207,8 +213,12 @@ def _scan_panel(cfg: VcfToBwtConfig, log, info: dict):
     """The .fai, the haplotype scans (in worker processes with --threads),
     the scanned FASTAs with save_fasta and the merged .mps with ma;
     returns every haplotype's records, in the reference's order."""
-    write_fai(cfg.fasta)
-    vcf = merge_vcfs(cfg.vcfs, contigs=cfg.contigs)
+    with span("vcf.fai") as stage:
+        write_fai(cfg.fasta)
+    info["fai_s"] = stage.seconds
+    with span("vcf.read") as stage:
+        vcf = merge_vcfs(cfg.vcfs, contigs=cfg.contigs)
+    info["read_s"] = stage.seconds
     samples = cfg.samples if cfg.samples else list(vcf.samples)
     log.info(
         "vcf_to_bwt: %d vcf(s), %d sample(s), w=%d p=%d threads=%d",
@@ -228,8 +238,7 @@ def _scan_panel(cfg: VcfToBwtConfig, log, info: dict):
     scan_args = {"fasta": cfg.fasta, "w": cfg.wsize,
                  "ma_wsize": cfg.ma_wsize, "want_markers": cfg.ma}
     log.info("generating haplotype sequences from VCF (%d scans)", len(tasks))
-    t0 = time.perf_counter()
-    with task_timer("scanning VCF haplotypes"):
+    with task_timer("scanning VCF haplotypes", "vcf.scan") as stage:
         if cfg.threads > 1 and len(tasks) > 1:
             scans = _scan_subprocess(
                 vcf, scan_args, tasks, min(cfg.threads, len(tasks)),
@@ -237,7 +246,7 @@ def _scan_panel(cfg: VcfToBwtConfig, log, info: dict):
             )
         else:
             scans = [scan_task(vcf, scan_args, t) for t in tasks]
-    info["scan_s"] = time.perf_counter() - t0
+    info["scan_s"] = stage.seconds
     prefixes = list(zip(names, scans))
 
     if cfg.save_fasta:
@@ -247,9 +256,8 @@ def _scan_panel(cfg: VcfToBwtConfig, log, info: dict):
     # merged .mps: offset each prefix's runs by its cumulative text length
     # (merge_mps semantics, src/merge_mps.cpp:63-81)
     if cfg.ma:
-        with task_timer("merging marker positions"), open(
-            cfg.output + ".mps", "wb"
-        ) as ofp:
+        with task_timer("merging marker positions", "vcf.mps") as stage, \
+                open(cfg.output + ".mps", "wb") as ofp:
             bias = 0
             for name, scan in prefixes:
                 starts, ends, markers = read_mps_runs(scan.mps_bytes)
@@ -260,6 +268,7 @@ def _scan_panel(cfg: VcfToBwtConfig, log, info: dict):
                     markers,
                 )
                 bias += scan.n(cfg.wsize)
+        info["mps_s"] = stage.seconds
 
     # one parse over the whole collection == merge_pfp fold of per-haplotype
     # parses (vcf_to_bwt.py:242-248)
@@ -268,7 +277,8 @@ def _scan_panel(cfg: VcfToBwtConfig, log, info: dict):
 
 def _fused_stages(cfg, log, all_records, params, want_sa_vals, mesh, info):
     """parse -> parse-BWT -> assembly as one device chain: the fused build,
-    or over the mesh when there is one (None on ranks other than 0)."""
+    or over the mesh when there is one (None on ranks other than 0); the
+    build's keys go into ``info``."""
     root = mesh is None or mesh.rank == 0
     what = "fused mesh pipeline" if mesh is not None else \
         "fused device pipeline"
@@ -284,9 +294,11 @@ def _fused_stages(cfg, log, all_records, params, want_sa_vals, mesh, info):
                 want_rssa=cfg.rssa, sa_dtype=cfg.dtype, info=info)
         from ..ops.fused import pfbwt_fused_records
 
-        return pfbwt_fused_records(
+        res, fused_info = pfbwt_fused_records(
             all_records, params, device=cfg.device, want_sa=want_sa_vals,
-            want_rssa=cfg.rssa, sa_dtype=cfg.dtype)[0]
+            want_rssa=cfg.rssa, sa_dtype=cfg.dtype)
+        info.update(fused_info)
+        return res
 
 
 def _staged_stages(cfg, log, all_records, params, want_sa_vals):
@@ -330,30 +342,32 @@ def _write_bwt_outputs(cfg, log, bwt_res, info: dict):
     .esa files, the SA->MA permute on cfg.device, and the reference's n/r
     stats lines."""
     n = bwt_res.bwt.shape[0] - 1
-    with open(cfg.output + ".bwt", "wb") as f:
-        f.write(bwt_res.bwt.tobytes())
-    if cfg.sa:
-        with open(cfg.output + ".sa", "wb") as f:
-            f.write(bwt_res.sa.astype(cfg.dtype).tobytes())
-    if cfg.rssa:
-        with open(cfg.output + ".ssa", "wb") as f:
-            f.write(bwt_res.ssa.astype(cfg.dtype).tobytes())
-        with open(cfg.output + ".esa", "wb") as f:
-            f.write(bwt_res.esa.astype(cfg.dtype).tobytes())
+    with span("vcf.write") as stage:
+        with open(cfg.output + ".bwt", "wb") as f:
+            f.write(bwt_res.bwt.tobytes())
+        if cfg.sa:
+            with open(cfg.output + ".sa", "wb") as f:
+                f.write(bwt_res.sa.astype(cfg.dtype).tobytes())
+        if cfg.rssa:
+            with open(cfg.output + ".ssa", "wb") as f:
+                f.write(bwt_res.ssa.astype(cfg.dtype).tobytes())
+            with open(cfg.output + ".esa", "wb") as f:
+                f.write(bwt_res.esa.astype(cfg.dtype).tobytes())
+    info["write_s"] = stage.seconds
     if cfg.ma:
         log.info("constructing marker array from SA stream")
-        t0 = time.perf_counter()
-        with task_timer("constructing marker array"):
-            mai = RleWindowArray(cfg.output + ".mps")
-            t1 = time.perf_counter()
-            starts, ends, markers = permute_sa(bwt_res.sa, mai,
-                                               device=cfg.device)
-            t2 = time.perf_counter()
-            with open(cfg.output + ".ma", "wb") as f:
-                write_mps_runs(f, starts, ends, markers)
-        t3 = time.perf_counter()
-        info.update(ma_s=t3 - t0, ma_index_s=t1 - t0, ma_permute_s=t2 - t1,
-                    ma_write_s=t3 - t2, ma_runs=len(markers))
+        with task_timer("constructing marker array", "vcf.ma") as stage:
+            with span("ma.index") as index:
+                mai = RleWindowArray(cfg.output + ".mps")
+            with span("ma.permute") as permute:
+                starts, ends, markers = permute_sa(bwt_res.sa, mai,
+                                                   device=cfg.device)
+            with span("ma.write") as write:
+                with open(cfg.output + ".ma", "wb") as f:
+                    write_mps_runs(f, starts, ends, markers)
+        info.update(ma_s=stage.seconds, ma_index_s=index.seconds,
+                    ma_permute_s=permute.seconds, ma_write_s=write.seconds,
+                    ma_runs=len(markers))
     info.update(n=n, r=bwt_res.nruns)
     log.info("done: n=%d r=%d n/r=%.3f", n, bwt_res.nruns,
              n / max(bwt_res.nruns, 1))

@@ -22,7 +22,6 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
-    yield os.path.join(REPO, "scripts", "profile_fused_torch.py")
 
 
 def test_import_loads_no_jax_in_a_fresh_interpreter():
