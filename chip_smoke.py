@@ -16,6 +16,14 @@ line:
    path's shape with the 64 MB input's own codes: CUDA-event median times
    of both (K1 one launch at a time, and in batches of 20 back to back),
    K1's bound and the share of it reached by each time.
+2b. Kernel K5 (the carry scan of J3's running maxima and minima)
+   against its plain versions on the card, bit for bit: max and min,
+   forward and reverse, lengths around its 4,096-lane tile, views 8 bytes
+   off a 16-byte boundary, values with -1 and the int64 extremes, and the
+   fused posrank on grouped keys; then at the main path's shape (2^27
+   int64) CUDA-event median times one launch at a time and in batches of
+   20, the plain version's and torch.cummax's, the bytes bound and the
+   share of it reached, and posrank's at the same shape.
 3. Kernels K2-K4 (the TPU gather probe's table gathers) against their
    plain versions on the card, bit for bit, in both tiers (shared memory
    and L2): tables of 1, 1000 and 2^20 entries and the two around the
@@ -37,7 +45,9 @@ line:
    4321) with the kernel launch counts set to 0 just before and read just
    after.  Stage times, peak device memory, n, r, checksum and doubling
    rounds are printed; the SA must be a permutation of [0, n] and every
-   BWT char the one before its suffix.
+   BWT char the one before its suffix; K5 must have launched once a dict
+   doubling round and four times more (the first round, the word of each
+   dict position, the next separator and the last emitter).
 6. The streamed build (``--fused -m``) of the 1 MB pan-genome on the
    card, with the streamed J2 and many emission chunks, library and CLI:
    .bwt/.sa/.ssa/.esa must equal phase 4's CPU build.
@@ -373,6 +383,111 @@ def phase_k1(codes_main: "torch.Tensor"):
     }
 
 
+K5_MAIN = 1 << 27  # int64 lanes: a dict doubling round of the main cell
+K5_LENGTHS = (1, 2, 4095, 4096, 4097, 3 * 4096 + 7, 1_000_003)
+
+
+def _k5_equal(got, want, what: str) -> int:
+    import torch
+
+    err = 0 if torch.equal(got, want) else 1
+    check(err == 0, f"K5 differs from plain {what}")
+    return err
+
+
+def phase_k5():
+    """K5 (the carry scan) against its plain versions on the card, bit for
+    bit: both ops, forward and reverse, lengths around the 4,096-lane tile
+    and 10^6 + 3, each also as a view 8 bytes off a 16-byte boundary,
+    values with -1 and the int64 extremes; posrank on sorted keys in
+    groups of 1 to 1000 under a random permutation.  Then the main path's
+    shape (2^27 int64): bit-equal, CUDA-event median times one launch at a
+    time and in batches of 20, the plain version's and torch.cummax's
+    (the library yardstick), the bytes bound (16 B a lane at 3.35 TB/s)
+    and its share of each time; posrank at the same shape beside its own
+    bound (24 B a lane).  Returns the kernel's row."""
+    import torch
+
+    from pfbwtf_tpu_torch.ops import carry
+    from pfbwtf_tpu_torch.ops.cuda import carry_scan as k5
+
+    check(k5.tile_lanes() == 4096, f"K5 tile {k5.tile_lanes()} != 4096")
+    gen = torch.Generator().manual_seed(15)
+    max_err = runs = 0
+    for n in K5_LENGTHS:
+        buf = torch.randint(-(1 << 40), 1 << 40, (n + 1,), generator=gen)
+        buf[::7] = -1
+        buf[n // 2] = -(1 << 63)
+        buf[n // 3] = (1 << 63) - 1
+        buf = buf.cuda()
+        for off in (0, 1):
+            x = buf[off: off + n]
+            for op in ("max", "min"):
+                for rev in (False, True):
+                    max_err |= _k5_equal(
+                        k5.carry(x, op, rev), carry.carry_plain(x, op, rev),
+                        f"at n={n} offset={off} op={op} reverse={rev}")
+                    runs += 1
+    rng = np.random.default_rng(15)
+    for groups in (1, 3, 1000, 20000):
+        sizes = rng.integers(1, 1001, size=groups)
+        cks = torch.from_numpy(np.repeat(
+            np.cumsum(rng.integers(1, 6, size=groups)), sizes)).cuda()
+        order = torch.from_numpy(rng.permutation(cks.shape[0])).cuda()
+        got, want = k5.posrank(cks, order), carry.posrank_plain(cks, order)
+        for g, w in zip(got, want):
+            max_err |= _k5_equal(g, w, f"posrank with {groups} groups")
+        runs += 1
+    torch.cuda.synchronize()
+    print(f"K5 grid: lengths {K5_LENGTHS} x offsets (0, 1) x max/min x "
+          f"forward/reverse and posrank on 4 groupings: {runs} runs "
+          f"bit-equal to the plain versions")
+
+    n = K5_MAIN
+    x = torch.randint(-(1 << 40), 1 << 40, (n,), device="cuda")
+    x[::7] = -1
+    max_err |= _k5_equal(k5.carry(x, "max"), carry.carry_plain(x, "max"),
+                         "at the main-path shape")
+    max_err |= _k5_equal(k5.carry(x, "min", True),
+                         carry.carry_plain(x, "min", True),
+                         "at the main-path shape (min, reverse)")
+    ms = _median_ms(lambda: k5.carry(x, "max"), 50)
+    ms_batched = _median_ms(lambda: k5.carry(x, "max"), 20, per=20)
+    plain_ms = _median_ms(lambda: carry.carry_plain(x, "max"), 5)
+    library_ms = _median_ms(lambda: torch.cummax(x, 0), 5)
+    bound_ms = 16 * n / HBM_BYTES_PER_S * 1e3
+    print(f"K5 carry max at n={n}: bit-equal; {ms:.4f} ms one launch at a "
+          f"time, {ms_batched:.4f} ms batched; plain {plain_ms:.3f} ms, "
+          f"torch.cummax {library_ms:.3f} ms; bound {bound_ms:.4f} ms (bytes, "
+          f"16 B a lane at 3.35 TB/s), {bound_ms / ms:.3f} of the time one "
+          f"at a time, {bound_ms / ms_batched:.3f} batched")
+    del x
+    cks = torch.sort(torch.randint(0, n // 4, (n,), device="cuda")).values
+    order = torch.randperm(n, device="cuda")
+    for g, w in zip(k5.posrank(cks, order), carry.posrank_plain(cks, order)):
+        max_err |= _k5_equal(g, w, "posrank at the main-path shape")
+    pos_ms = _median_ms(lambda: k5.posrank(cks, order), 20)
+    pos_batched = _median_ms(lambda: k5.posrank(cks, order), 10, per=20)
+    pos_plain = _median_ms(lambda: carry.posrank_plain(cks, order), 5)
+    pos_bound = 24 * n / HBM_BYTES_PER_S * 1e3
+    print(f"K5 posrank at n={n} (random permutation): bit-equal; "
+          f"{pos_ms:.4f} ms one launch at a time, {pos_batched:.4f} ms "
+          f"batched; plain {pos_plain:.3f} ms; bound {pos_bound:.4f} ms "
+          f"(bytes, 24 B a lane), {pos_bound / pos_ms:.3f} of the time")
+    del cks, order
+    return {
+        "name": "carry_scan", "route": "cuda",
+        "source": "pfbwtf_tpu_torch/csrc/carry_scan.cu",
+        "replaces": "none (lax.cummax / lax.cummin, XLA primitives)",
+        "launches": None, "max_abs_err": max_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": library_ms, "bound_share": bound_ms / ms,
+        "ms_batched": ms_batched, "bound_share_batched": bound_ms / ms_batched,
+        "posrank": {"ms": pos_ms, "ms_batched": pos_batched,
+                    "plain_ms": pos_plain, "bound_ms": pos_bound},
+    }
+
+
 GATHER_ROWS = (  # (wrapper, TPU kernel it replaces)
     ("take", "benchmarks/gather_probe.py:75"),
     ("take_along", "benchmarks/gather_probe.py:108"),
@@ -641,6 +756,7 @@ def phase_main(records, C):
     torch.cuda.synchronize()
     e2e = time.perf_counter() - t0
     launches = info["counts"].get("k1_launches", 0)
+    k5_launches = info["counts"].get("k5_launches", 0)
     peak = torch.cuda.max_memory_allocated()
     print(f"64 MB J2 seconds: {info['j2_s']:.4f} ({info['j2_runs']} run)")
     print(f"64 MB J3 seconds: {info['j3_s']:.4f}")
@@ -657,10 +773,14 @@ def phase_main(records, C):
     print(f"64 MB K1 launches: {launches}; the build's counts "
           f"{info['counts']}")
     check(launches >= 1, "the main path did not launch K1")
+    dict_rounds = info["rounds"]["dict_sa"]
+    print(f"64 MB K5 launches: {k5_launches} ({dict_rounds} dict rounds)")
+    check(k5_launches == dict_rounds + 4,
+          f"K5 launched {k5_launches} times, not dict rounds + 4")
     t1 = time.perf_counter()
     check_bwt_sa(C, res.bwt, res.sa, "cuda")
     print(f"64 MB SA/BWT checks passed ({time.perf_counter() - t1:.2f} s)")
-    return launches, res, peak
+    return (launches, k5_launches), res, peak
 
 
 def fresh_memory():
@@ -1908,9 +2028,11 @@ def main() -> int:
     codes_main = ntoa_codes(torch.from_numpy(chars_p).cuda())
     row = phase_k1(codes_main)
     del codes_main
+    k5_row = phase_k5()
     gather_rows = phase_gather()
     small_records, small_cpu, small_fasta = phase_small()
-    row["launches"], mono_res, mono_peak = phase_main(records, C)
+    (row["launches"], k5_row["launches"]), mono_res, mono_peak = phase_main(
+        records, C)
     del records
     by_path = {"fused 64 MB": row["launches"]}
     by_path["fused -m 1 MB"] = phase_stream_small(small_records, small_cpu,
@@ -1943,7 +2065,7 @@ def main() -> int:
     by_path[f"fused -m {BIG_MB} MB"] = phase_stream_big()
     row["launches_by_path"] = by_path
     print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")
-    print(json.dumps({"kernels": [row, *gather_rows]}))
+    print(json.dumps({"kernels": [row, k5_row, *gather_rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

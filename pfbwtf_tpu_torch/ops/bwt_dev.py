@@ -23,6 +23,7 @@ import torch
 from ..constants import Dollar, EndOfDict, EndOfWord
 from ..utils.device import resolve_device
 from .bwt import BWTResult, bwt_result
+from .carry import carry_max, carry_min
 from .suffix import (compact_indices, dict_key_plan, doubling_with_captures,
                      fanout_impl, packed_dict_keys, sort_impl)
 
@@ -61,7 +62,7 @@ def dict_sort_part(dict_flat: torch.Tensor, w: int, n_levels: int = None,
     keys0, k0, fp_word = packed_dict_keys(dict_flat, w, alphabet)
     _, t_min, _ = dict_key_plan(w, alphabet)
     sep_idx = torch.where(is_sep, iota, D)
-    next_sep = torch.cummin(sep_idx.flip(0), 0).values.flip(0)
+    next_sep = carry_min(sep_idx, reverse=True)
     suf_len = next_sep - iota
     sa_all, _, C1, C2 = doubling_with_captures(
         keys0, suf_len, k0=k0, n_levels=n_levels, fp_word=fp_word,
@@ -210,7 +211,7 @@ def assemble_core(dict_flat, occs, bwlast, ilist, bwsai, nsuf_true: int,
         sidx = torch.arange(nsuf_b, device=dev)
         # index of the last emitter strictly before s
         pe_ex = torch.full((nsuf_b,), -1, dtype=torch.int64, device=dev)
-        pe_ex[1:] = torch.cummax(torch.where(emit, sidx, -1), 0).values[:-1]
+        pe_ex[1:] = carry_max(torch.where(emit, sidx, -1))[:-1]
         sc_idx = torch.where(emit, first, total_b)
         prev = torch.clamp(pe_ex, 0, nsuf_b - 1)
 
@@ -231,7 +232,7 @@ def assemble_core(dict_flat, occs, bwlast, ilist, bwsai, nsuf_true: int,
                           torch.zeros(total_b, dtype=torch.int64,
                                       device=dev)))
         mkey_s, order = torch.sort(mkey, stable=True)
-        run = torch.cummax(mval[order], 0).values
+        run = carry_max(mval[order])
         del mkey, mval, order
         # the slot lanes are exactly total_b of them: no fill lanes
         slot_pos = torch.nonzero((mkey_s & 1) == 1).flatten()
@@ -242,8 +243,7 @@ def assemble_core(dict_flat, occs, bwlast, ilist, bwsai, nsuf_true: int,
             total_b, torch.where(counts > 0, first, total_b),
             torch.arange(nsuf_b, device=dev) + 1, dev,
         )
-        E_suffix = torch.clamp(torch.cummax(mark, 0).values - 1, 0,
-                               nsuf_b - 1)
+        E_suffix = torch.clamp(carry_max(mark) - 1, 0, nsuf_b - 1)
     within = eidx - first[E_suffix]
     E_j = ilist[torch.clamp(seg_u[E_suffix] + within, 0, m_ilist - 1)]
     gid_e = gid[E_suffix]

@@ -66,16 +66,17 @@ def _smem_limit(fns: dict, dev: int) -> int:
 
 
 def output_like(idx: torch.Tensor) -> torch.Tensor:
-    """An int32 output of idx's length at idx's address modulo 16, so that
-    the kernel's vector loads and stores align together: ``empty_like``
+    """An output of idx's length and type at idx's address modulo 16, so
+    that a kernel's vector loads and stores align together: ``empty_like``
     for an aligned idx (every fresh allocation is), else a view into a
-    buffer three lanes longer."""
+    buffer 16 bytes less one lane longer (K2-K4's int32 indices, K5's
+    int64 lanes)."""
     shift = idx.data_ptr() % 16
     if shift == 0:
         return torch.empty_like(idx)
-    n = idx.shape[0]
-    buf = torch.empty(n + 3, dtype=torch.int32, device=idx.device)
-    lead = (shift - buf.data_ptr() % 16) % 16 // 4
+    n, size = idx.shape[0], idx.element_size()
+    buf = torch.empty(n + 16 // size - 1, dtype=idx.dtype, device=idx.device)
+    lead = (shift - buf.data_ptr() % 16) % 16 // size
     return buf[lead: lead + n]
 
 

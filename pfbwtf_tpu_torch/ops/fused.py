@@ -46,6 +46,7 @@ from ..utils.timer import build, host_read, span
 from . import suffix
 from .bwt import bwt_result
 from .bwt_dev import _exclusive_cumsum, _set_drop, assemble_core, dict_sort_part
+from .carry import carry_max
 from .hash import cut_mask
 from .parse_bwt import parse_bwt_core
 from .suffix import compact_indices, dict_key_plan, fanout_impl, sort_impl
@@ -396,7 +397,7 @@ def _j3_prep_core(Tp, parse_ranks, occs, dict_start, dict_len, last, sai,
         wstart = torch.cumsum(contrib, 0) - contrib
         mark = _set_drop(dict_b, torch.where(r < D, wstart, dict_b), r + 1,
                          dev)
-        word = torch.clamp(torch.cummax(mark, 0).values - 1, 0, nph_b - 1)
+        word = torch.clamp(carry_max(mark) - 1, 0, nph_b - 1)
         within = pidx - wstart[word]
         src = torch.clamp(dict_start[word] + within, 0, tb - 1)
         ch = torch.where(within < dict_len[word], Tp[src], EndOfWord)

@@ -41,6 +41,7 @@ from ..utils.timer import task_timer
 from . import fused
 from .bwt_dev import _emit_decode, emission_state
 from .bwt_mmap import _ChunkWriter
+from .carry import carry_max
 from .suffix import compact_indices
 
 _I64_MAX = 2**63 - 1
@@ -138,8 +139,7 @@ def _chunk_core(first, gid, seg_u, flags, ls, bwlast, ilist, bwsai,
     mark = torch.zeros(chunk_b + 1, dtype=torch.int64, device=dev)
     mark.scatter_reduce_(0, torch.clamp(first_w, max=chunk_b), l[:ns] + 1,
                          reduce="amax")
-    E = torch.clamp(torch.cummax(mark[:chunk_b], 0).values - 1, 0,
-                    chunk_b - 1)
+    E = torch.clamp(carry_max(mark[:chunk_b]) - 1, 0, chunk_b - 1)
     e_valid = l < m_true
     # the suffix length is a function of the group: a chunk-local table
     # recovers it after the sort (local gids are < chunk_b, since every

@@ -34,6 +34,7 @@ import torch
 
 from ..constants import EndOfDict
 from ..utils.timer import count, host_read
+from .carry import carry_max, posrank
 
 rounds = {"parse_sa": 0, "dict_sa": 0, "dict_sa_subset": 0}
 
@@ -215,17 +216,17 @@ def _posrank(cks: torch.Tensor, order: torch.Tensor, idx: torch.Tensor,
     order: each position gets the sorted position of its group's head.
     Returns (rank, counts) with the counts on the device: [groups], or
     with ``unresolved`` [groups, unresolved lanes], a lane being
-    unresolved while its group has another member."""
+    unresolved while its group has another member.  The default round is
+    one launch of kernel K5 on a card (carry.posrank)."""
+    if not unresolved:
+        return posrank(cks, order)
     n = cks.shape[0]
     changed = torch.ones(n, dtype=torch.bool, device=cks.device)
     changed[1:] = cks[1:] != cks[:-1]
-    headpos = torch.cummax(torch.where(changed, idx, 0), 0).values
-    if unresolved:
-        single = changed.clone()
-        single[:-1] &= changed[1:]
-        counts = torch.stack((changed.sum(), n - single.sum()))
-    else:
-        counts = changed.sum().reshape(1)
+    headpos = carry_max(torch.where(changed, idx, 0))
+    single = changed.clone()
+    single[:-1] &= changed[1:]
+    counts = torch.stack((changed.sum(), n - single.sum()))
     return _scatter_perm(order, headpos), counts
 
 
@@ -249,8 +250,8 @@ def _subset_round(rank: torch.Tensor, pos_u: torch.Tensor, k: int, B: int):
     changed[1:] = cks[1:] != cks[:-1]
     block = torch.ones(m, dtype=torch.bool, device=rank.device)
     block[1:] = ru_s[1:] != ru_s[:-1]
-    base = torch.cummax(torch.where(block, sidx, 0), 0).values
-    head = torch.cummax(torch.where(changed, sidx, 0), 0).values
+    base = carry_max(torch.where(block, sidx, 0))
+    head = carry_max(torch.where(changed, sidx, 0))
     rank[pos_s] = ru_s + (head - base)
     return changed.sum() - block.sum()
 

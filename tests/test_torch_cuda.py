@@ -1,4 +1,4 @@
-"""Kernels K1-K4, the fused and staged builds (the staged -m included),
+"""Kernels K1-K5, the fused and staged builds (the staged -m included),
 the device SA->MA permute, vcf_to_bwt and merge_pfp on a CUDA card
 against the plain PyTorch versions and the CPU run, and the host backend
 of stages 2 and 3 against the card's.  Marked ``cuda``: each test
@@ -16,7 +16,8 @@ from pfbwtf_tpu_torch.markers.ma_dev import marker_array_from_sa_dev
 from pfbwtf_tpu_torch.markers.mps import write_mps_runs
 from pfbwtf_tpu_torch.markers.rle_window import RleWindowArray
 from pfbwtf_tpu_torch.ops.bwt_mmap import assemble_bwt_stream
-from pfbwtf_tpu_torch.ops import gather
+from pfbwtf_tpu_torch.ops import carry, gather
+from pfbwtf_tpu_torch.ops.cuda import carry_scan as carry_kernels
 from pfbwtf_tpu_torch.ops.cuda import gather as gather_kernels
 from pfbwtf_tpu_torch.ops.cuda import hash_scan as k1
 from pfbwtf_tpu_torch.ops.fused import pfbwt_fused_records
@@ -144,6 +145,81 @@ def test_gather_kernels_equal_plain_on_card(card, name):
                         t, toff, n, off)
     for tier in ("smem", "l2"):
         assert gather_kernels.tier_launches[tier] > tiers[tier]
+
+
+K5_TILE = 4096  # csrc/carry_scan.cu's kTile (pfbwt_carry_tile)
+
+
+@pytest.mark.parametrize("n", [1, 2, K5_TILE - 1, K5_TILE, K5_TILE + 1,
+                               3 * K5_TILE + 7, 10**6 + 3, 1 << 27])
+def test_k5_carry_equals_plain_on_card(card, n):
+    """Both ops, forward and reverse, values with -1 and the int64
+    extremes, each also as a view 8 bytes off a 16-byte boundary."""
+    assert carry_kernels.tile_lanes() == K5_TILE
+    g = torch.Generator().manual_seed(n)
+    buf = torch.randint(-(1 << 40), 1 << 40, (n + 1,), generator=g)
+    buf[::7] = -1
+    buf[n // 2] = -(1 << 63)
+    buf[n // 3] = (1 << 63) - 1
+    buf = buf.to(card)
+    for off in (0, 1):
+        x = buf[off: off + n]
+        assert x.data_ptr() % 16 == 8 * off
+        for op in ("max", "min"):
+            for reverse in (False, True):
+                before = carry_kernels.launches["carry"]
+                got = carry_kernels.carry(x, op, reverse)
+                torch.cuda.synchronize()
+                assert carry_kernels.launches["carry"] == before + 1
+                assert got.data_ptr() % 16 == x.data_ptr() % 16
+                assert torch.equal(got, carry.carry_plain(x, op, reverse)), (
+                    off, op, reverse)
+
+
+@pytest.mark.parametrize("seed,n_groups", [(0, 1), (1, 3), (2, 1000),
+                                           (3, 20000)])
+def test_k5_posrank_equals_plain_on_card(card, seed, n_groups):
+    """Sorted keys in groups of 1 to 1000 with a random permutation, the
+    keys also as a view 8 bytes off a 16-byte boundary (the wrapper then
+    aligns the permutation to them)."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, 1001, size=n_groups)
+    vals = np.cumsum(rng.integers(1, 6, size=n_groups)) - (1 << 35)
+    cks = torch.from_numpy(np.repeat(vals, sizes).astype(np.int64))
+    order = torch.from_numpy(rng.permutation(cks.shape[0]).astype(np.int64))
+    shifted = torch.cat((cks[:1], cks)).to(card)[1:]
+    for off, ck in ((0, cks.to(card)), (1, shifted)):
+        assert ck.data_ptr() % 16 == 8 * off
+        od = order.to(card)
+        before = carry_kernels.launches["posrank"]
+        rank, counts = carry_kernels.posrank(ck, od)
+        torch.cuda.synchronize()
+        assert carry_kernels.launches["posrank"] == before + 1
+        want_rank, want_counts = carry.posrank_plain(ck, od)
+        assert torch.equal(rank, want_rank), off
+        assert torch.equal(counts, want_counts) and int(counts) == n_groups
+
+
+def test_k5_fused_64mib_checksum_equals_plain_sites(card, monkeypatch):
+    """The fused build of a 64 MiB pan-genome (8 haplotypes of 8 MiB, SNPs
+    at 0.001): K5 at every site, then every site on its plain version
+    (the kernel wrapper's entries replaced for this test only); the same
+    files and padded-buffer checksum, and K5 launched once a dict doubling
+    round, once for the first round, and once each for the word of each
+    dict position, the next separator and the last emitter."""
+    fa = _pan_fasta_records(42, 8 << 20, 8, nmut=8389)
+    kw = dict(want_sa=True, want_rssa=True)
+    got, info = pfbwt_fused_records(fa, ParserParams(), device="cuda", **kw)
+    counts = info["counts"]
+    assert counts["k5_launches"] == info["rounds"]["dict_sa"] + 4, counts
+    monkeypatch.setattr(carry_kernels, "carry", carry.carry_plain)
+    monkeypatch.setattr(carry_kernels, "posrank", carry.posrank_plain)
+    want, winfo = pfbwt_fused_records(fa, ParserParams(), device="cuda",
+                                      **kw)
+    assert "k5_launches" not in winfo["counts"]
+    assert info["checksum"] == winfo["checksum"]
+    for field in ("bwt", "sa", "ssa", "esa"):
+        assert np.array_equal(getattr(got, field), getattr(want, field))
 
 
 ELEVEN = ("dict", "occ", "parse", "n", "bwlast", "ilist", "bwsai", "bwt",

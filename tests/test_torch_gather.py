@@ -151,15 +151,18 @@ def test_output_like_an_aligned_index_is_plain_storage():
     assert out.untyped_storage().nbytes() == 4 * 1001
 
 
-@pytest.mark.parametrize("off", [1, 2, 3])
+@pytest.mark.parametrize("dtype,off", [(torch.int32, 1), (torch.int32, 2),
+                                       (torch.int32, 3), (torch.int64, 1)])
 @pytest.mark.parametrize("n", [1, 5, 1000])
-def test_output_like_an_offset_view_shares_its_address_mod_16(off, n):
-    buf = torch.zeros(n + off, dtype=torch.int32)
+def test_output_like_an_offset_view_shares_its_address_mod_16(dtype, off, n):
+    """K2-K4's int32 indices at 4, 8 and 12 bytes off a 16-byte boundary,
+    and K5's int64 lanes at 8."""
+    buf = torch.zeros(n + off, dtype=dtype)
     idx = buf[off:]
-    assert idx.data_ptr() % 16 == 4 * off
+    assert idx.data_ptr() % 16 == idx.element_size() * off
     out = kernels.output_like(idx)
     assert out.data_ptr() % 16 == idx.data_ptr() % 16
-    assert out.shape == idx.shape and out.dtype == torch.int32
+    assert out.shape == idx.shape and out.dtype == dtype
     assert out._base is not None and out.is_contiguous()
 
 

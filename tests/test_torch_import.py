@@ -180,7 +180,7 @@ def test_kernel_build_fails_loudly_without_nvcc(monkeypatch, tmp_path):
         pytest.skip("a CUDA toolkit is installed")
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
-    assert build.sources() == ["gather", "hash_scan"]
+    assert build.sources() == ["carry_scan", "gather", "hash_scan"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.library_path("hash_scan")
 
