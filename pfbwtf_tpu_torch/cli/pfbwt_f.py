@@ -267,30 +267,24 @@ def _open_out(args, output: str, ext: str):
 
 def _run_fused_stream(args, output: str, dtype, device, params) -> int:
     """The streamed build: .bwt/.sa written chunk by chunk, .ssa/.esa from
-    the run-length bookkeeping across chunks."""
+    the run-length bookkeeping across chunks, all opened by the entry once
+    the text's width is checked."""
     from ..io.fasta import read_fasta_bytes
-    from ..ops.fused_stream import pfbwt_fused_stream
-    from ..ops.parse import build_stream
-    from ..utils.limits import check_text_width
+    from ..ops.fused_stream import pfbwt_fused_stream_records
     from ..utils.timer import task_timer
 
-    C, _, _ = build_stream(read_fasta_bytes(args.fasta), params)
-    n = C.shape[0]
-    check_text_width(n, dtype)
-    with _open_out(args, output, "bwt") as bwt_fp, (
-        _open_out(args, output, "sa") if args.sa else nullcontext()
-    ) as sa_fp:
-        with task_timer("fused device pipeline, streamed (parse+pfbwt)"):
-            out = pfbwt_fused_stream(
-                C, args.w, args.p, bwt_fp=bwt_fp, sa_fp=sa_fp,
-                sa_dtype=dtype, want_rssa=args.rssa, device=device,
-            )
-    nruns = out[0]
-    if args.rssa:
-        with open(output + ".ssa", "wb") as f:
-            f.write(out[3].astype(dtype).tobytes())
-        with open(output + ".esa", "wb") as f:
-            f.write(out[4].astype(dtype).tobytes())
+    def open_out(ext):
+        if ext in ("bwt", "sa"):
+            return _open_out(args, output, ext)
+        return open(f"{output}.{ext}", "wb")
+
+    records = read_fasta_bytes(args.fasta)
+    with task_timer("fused device pipeline, streamed (parse+pfbwt)"):
+        out, info = pfbwt_fused_stream_records(
+            records, params, open_out=open_out, want_sa=args.sa,
+            want_rssa=args.rssa, sa_dtype=dtype, device=device,
+        )
+    n, nruns = info["n"], out[0]
     print(f"n: {n}", file=sys.stderr)
     print(f"r: {nruns}", file=sys.stderr)
     print(f"n/r: {n / nruns:.3f}", file=sys.stderr)

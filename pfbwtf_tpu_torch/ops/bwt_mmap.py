@@ -20,7 +20,10 @@ of the staged ``pfbwt_f -m`` (pfbwtf_tpu/ops/bwt_mmap.py):
 Host RAM and device memory stay O(|dict| + |parse| + chunk).
 ``_ChunkWriter`` is the output side of this path and of the streamed fused
 build: it downloads each chunk, writes it, and collects the .ssa/.esa
-samples across chunk boundaries (``_RunState``).
+samples across chunk boundaries (``_RunState``).  Inside an open build
+(utils/timer.build) each chunk's wait for its download, its writes and
+its run sampling are spans ``j3e.fetch``, ``j3e.write`` and
+``j3e.sample``, and its download's bytes count as ``d2h_bytes``.
 """
 
 import time
@@ -31,6 +34,7 @@ import torch
 
 from ..utils.device import resolve_device
 from ..utils.errors import die
+from ..utils.timer import count, span
 from .bwt import suffix_layout
 
 
@@ -96,7 +100,11 @@ class _RunState:
 
 def _start_fetch(bwt_d, sa_d):
     """Queue the download of one chunk; returns (bwt, sa, event) with host
-    tensors that are complete once ``event`` (None on the CPU) is."""
+    tensors that are complete once ``event`` (None on the CPU) is.  The
+    bytes count as the build's ``d2h_bytes``, as utils/timer.host_read
+    counts them (on the CPU too); the copies are not syncs."""
+    count("d2h_bytes", sum(t.numel() * t.element_size()
+                           for t in (bwt_d, sa_d) if t is not None))
     if bwt_d.device.type == "cpu":
         return bwt_d, sa_d, None
     bwt_h = torch.empty(bwt_d.shape, dtype=bwt_d.dtype, pin_memory=True)
@@ -136,17 +144,20 @@ class _ChunkWriter:
             return
         base, (bwt_h, sa_h, event) = self._pending
         self._pending = None
-        if event is not None:
-            event.synchronize()
-        bwtc = bwt_h.numpy()
-        if self.bwt_fp is not None:
-            self.bwt_fp.write(bwtc.tobytes())
-        sa_vals = None
-        if self.need_sa:
-            sa_vals = sa_h.numpy().view(np.uint64)
-            if self.sa_fp is not None:
-                self.sa_fp.write(sa_vals.astype(self.sa_dtype).tobytes())
-        self.runs.feed(base, bwtc, sa_vals if self.want_rssa else None)
+        with span("j3e.fetch"):
+            if event is not None:
+                event.synchronize()
+        with span("j3e.write"):
+            bwtc = bwt_h.numpy()
+            if self.bwt_fp is not None:
+                self.bwt_fp.write(bwtc.tobytes())
+            sa_vals = None
+            if self.need_sa:
+                sa_vals = sa_h.numpy().view(np.uint64)
+                if self.sa_fp is not None:
+                    self.sa_fp.write(sa_vals.astype(self.sa_dtype).tobytes())
+        with span("j3e.sample"):
+            self.runs.feed(base, bwtc, sa_vals if self.want_rssa else None)
 
 
 def assemble_bwt_stream(

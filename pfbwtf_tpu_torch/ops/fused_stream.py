@@ -26,18 +26,28 @@ Host reads: J2's sizes, J3a's chunk table, then either each chunk's
 bytes (file mode: chunk c is written while chunk c+1 is computed) or,
 in checksum-only mode, one running checksum and invariant count at the
 end.
+
+``pfbwt_fused_stream`` is a build (utils/timer.build): spans
+``host_prep``; ``j2`` (``j2.upload``, ``j2.run``, ``j2.sizes_read``);
+``j3a`` (``j3.dict_flat``, ``j3.dict_sort``, ``j3.ranks_bwt``,
+``j3a.state``, ``j3a.table_read``); ``j3e`` (``j3e.fetch``,
+``j3e.write``, ``j3e.sample`` of each chunk, ``j3e.checksum_read``);
+``files`` (the run samples' concatenation and their writes).  Its host
+reads count as ``syncs`` and ``d2h_bytes``, each chunk's download as
+``d2h_bytes`` alone.  ``pfbwt_fused_stream_records`` adds ``stream``.
 """
 
 import os
-import time
+from contextlib import ExitStack
 
 import numpy as np
 import torch
 
 from ..utils.device import resolve_device
 from ..utils.errors import die
+from ..utils.limits import check_text_width
 from ..utils.tables import codes_or_die
-from ..utils.timer import task_timer
+from ..utils.timer import build, host_read, span, task_timer
 from . import fused
 from .bwt_dev import _emit_decode, emission_state
 from .bwt_mmap import _ChunkWriter
@@ -80,30 +90,33 @@ def _dict_state_core(Tp, parse_ranks, occs, dict_start, dict_len, last, sai,
         nphrases, D, dict_total, w, dict_b, n_levels=n_levels,
         alphabet=alphabet,
     )
-    (
-        sa_kept, suf_valid, ls, gid, u, counts, first, flags, _, seg_u,
-    ) = emission_state(dict_flat, occs, nsuf_true, w, nsuf_b, ss, seg_start)
-    del ss
-    dev = gid.device
-    total = counts.sum()
-    head = torch.ones(nsuf_b, dtype=torch.bool, device=dev)
-    head[1:] = gid[1:] != gid[:-1]
-    head &= suf_valid
-    gs_idx = compact_indices(head, nsuf_b, fill=nsuf_b)
-    gs_pref = torch.where(
-        gs_idx < nsuf_b, first[torch.clamp(gs_idx, max=nsuf_b - 1)], _I64_MAX
-    )
-    targets = torch.arange(max_chunks + 1, device=dev) * chunk_target
-    past = targets >= total
-    pick = torch.searchsorted(gs_pref, torch.minimum(targets, total))
-    s_starts = torch.where(
-        past, nsuf_true, gs_idx[torch.clamp(pick, max=nsuf_b - 1)]
-    )
-    bases = torch.where(
-        past, total, first[torch.clamp(s_starts, max=nsuf_b - 1)]
-    )
-    max_m = (bases[1:] - bases[:-1]).max()
-    table = torch.cat((s_starts, bases, torch.stack((max_m, total))))
+    with span("j3a.state"):
+        (
+            sa_kept, suf_valid, ls, gid, u, counts, first, flags, _, seg_u,
+        ) = emission_state(dict_flat, occs, nsuf_true, w, nsuf_b, ss,
+                           seg_start)
+        del ss
+        dev = gid.device
+        total = counts.sum()
+        head = torch.ones(nsuf_b, dtype=torch.bool, device=dev)
+        head[1:] = gid[1:] != gid[:-1]
+        head &= suf_valid
+        gs_idx = compact_indices(head, nsuf_b, fill=nsuf_b)
+        gs_pref = torch.where(
+            gs_idx < nsuf_b, first[torch.clamp(gs_idx, max=nsuf_b - 1)],
+            _I64_MAX,
+        )
+        targets = torch.arange(max_chunks + 1, device=dev) * chunk_target
+        past = targets >= total
+        pick = torch.searchsorted(gs_pref, torch.minimum(targets, total))
+        s_starts = torch.where(
+            past, nsuf_true, gs_idx[torch.clamp(pick, max=nsuf_b - 1)]
+        )
+        bases = torch.where(
+            past, total, first[torch.clamp(s_starts, max=nsuf_b - 1)]
+        )
+        max_m = (bases[1:] - bases[:-1]).max()
+        table = torch.cat((s_starts, bases, torch.stack((max_m, total))))
     state = {
         "dict_flat": dict_flat, "sa_kept": sa_kept, "gid": gid, "u": u,
         "ls": ls, "first": first, "seg_start": seg_start, "seg_u": seg_u,
@@ -188,12 +201,14 @@ def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
                        chunk_target: int = 48 << 20, max_chunks: int = 256,
                        fetch: bool = None, want_rssa: bool = False,
                        device="cuda", j2_stream: bool = None,
-                       j2_chunk: int = None, info: dict = None):
+                       j2_chunk: int = None, info: dict = None,
+                       ssa_fp=None, esa_fp=None):
     """Whole streamed build over the padded char stream C on ``device``.
 
     With file objects, or ``want_rssa``, .bwt/.sa are written chunk by
     chunk and the result is (nruns, total, checksum), plus (ssa, esa) with
-    ``want_rssa``.  Without (checksum-only mode) only the checksum leaves
+    ``want_rssa``, which are also written to ``ssa_fp``/``esa_fp`` where
+    given (as ``sa_dtype``).  Without (checksum-only mode) only the checksum leaves
     the card: (None, total, checksum).  The checksum is the wrapping
     uint64 sum of every BWT byte and SA value.
 
@@ -209,99 +224,144 @@ def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
     j3a_s, chunks_s; each ends in a host read) and, on a card, the
     device's peak allocation so far as each stage ends (peak_j2,
     peak_j3a, peak_chunks: torch.cuda.max_memory_allocated, so the stage
-    whose figure first reaches the run's peak set it)."""
+    whose figure first reaches the run's peak set it); as the outermost
+    entry point also spans, counts and build_id (module docstring)."""
     dev = resolve_device(device)
     if fetch is None:
         fetch = bwt_fp is not None or sa_fp is not None or want_rssa
     info = {} if info is None else info
-    codes_or_die(C)
-    alphabet = fused.dict_alphabet(C)
-    C_len = int(C.shape[0])
-    n = C_len
-    n_b = fused._bucket(max(C_len, 1), 1 << 16)
-    chars_p = np.empty(n_b, dtype=np.uint8)
-    chars_p[:C_len] = C
-    chars_p[C_len:] = ord("A")
-    if j2_stream is None:
-        env = os.environ.get("PFBWT_J2_STREAM", "auto").lower()
-        j2_stream = env == "1" or (env != "0" and C_len > J2_STREAM_ABOVE)
-    if j2_chunk is None:
-        j2_chunk = int(os.environ.get("PFBWT_J2_CHUNK", str(64 << 20)))
+    with build(info):
+        with span("host_prep"):
+            codes_or_die(C)
+            alphabet = fused.dict_alphabet(C)
+            C_len = int(C.shape[0])
+            n = C_len
+            n_b = fused._bucket(max(C_len, 1), 1 << 16)
+            chars_p = np.empty(n_b, dtype=np.uint8)
+            chars_p[:C_len] = C
+            chars_p[C_len:] = ord("A")
+        if j2_stream is None:
+            env = os.environ.get("PFBWT_J2_STREAM", "auto").lower()
+            j2_stream = env == "1" or (env != "0" and C_len > J2_STREAM_ABOVE)
+        if j2_chunk is None:
+            j2_chunk = int(os.environ.get("PFBWT_J2_CHUNK", str(64 << 20)))
 
-    t0 = time.perf_counter()
-    with task_timer("streamed build: J2 parse"):
-        chars = torch.from_numpy(chars_p).to(dev)
-        del chars_p
-        nph_b = fused._bucket(fused.speculative_nphrases(C_len, p))
-        if j2_stream:
-            state, meta, j2_runs = fused.run_parse_stream(
-                chars, C_len, w, p, nph_b, chunk_target=j2_chunk)
-        else:
-            state, meta, j2_runs = fused.run_parse(chars, C_len, w, p, nph_b)
-        del chars
-    t1 = time.perf_counter()
-    ncuts, D, dict_total, max_len = meta
-    nsuf = (dict_total - 1 - D) - D * w
-    n_levels = fused.capture_levels(max_len, w, alphabet)
-    info.update(n=n, n_b=n_b, nphrases=ncuts + 1, nph_b=state[1].shape[0],
-                D=D, dict_total=dict_total, nsuf=nsuf, n_levels=n_levels,
-                alphabet=alphabet,
-                j2_stream=j2_stream, j2_runs=j2_runs, j2_s=t1 - t0,
-                peak_j2=_peak(dev))
+        with task_timer("streamed build: J2 parse", "j2") as j2:
+            with span("j2.upload"):
+                chars = torch.from_numpy(chars_p).to(dev)
+            del chars_p
+            nph_b = fused._bucket(fused.speculative_nphrases(C_len, p))
+            if j2_stream:
+                state, meta, j2_runs = fused.run_parse_stream(
+                    chars, C_len, w, p, nph_b, chunk_target=j2_chunk)
+            else:
+                state, meta, j2_runs = fused.run_parse(chars, C_len, w, p,
+                                                       nph_b)
+            del chars
+        ncuts, D, dict_total, max_len = meta
+        nsuf = (dict_total - 1 - D) - D * w
+        n_levels = fused.capture_levels(max_len, w, alphabet)
+        info.update(n=n, n_b=n_b, nphrases=ncuts + 1,
+                    nph_b=state[1].shape[0], D=D, dict_total=dict_total,
+                    nsuf=nsuf, n_levels=n_levels, alphabet=alphabet,
+                    j2_stream=j2_stream, j2_runs=j2_runs, j2_s=j2.seconds,
+                    peak_j2=_peak(dev))
 
-    with task_timer("streamed build: J3a dict sort, parse-BWT, chunk table"):
-        st, table = _dict_state_core(
-            *state[:-1], ncuts + 1, D, dict_total, nsuf, chunk_target, w,
-            fused._bucket(dict_total), fused._bucket(nsuf), max_chunks,
-            n_levels=n_levels, alphabet=alphabet,
-        )
-        del state
-        st = {k: st[k] for k in _CHUNK_KEYS}
-        table = table.tolist()  # host sync
-    t2 = time.perf_counter()
-    info.update(j3a_s=t2 - t1, peak_j3a=_peak(dev))
-    s_starts = table[: max_chunks + 1]
-    bases = table[max_chunks + 1: 2 * (max_chunks + 1)]
-    max_m, total = table[-2], table[-1]
-    if total != n + 1:
-        die(f"streamed assembly sizing bug: total {total} != n+1 {n + 1}")
-    if bases[-1] != total:
-        die(f"streamed assembly needs more than {max_chunks} chunks at "
-            f"chunk_target={chunk_target} (covered {bases[-1]}/{total}); "
-            "raise chunk_target or max_chunks")
-    chunk_b = fused._bucket(max(max_m, 1))
-    info["chunk_b"] = chunk_b
-
-    out = _ChunkWriter(bwt_fp, sa_fp, sa_dtype, want_rssa)
-    ck_sum = torch.zeros((), dtype=torch.int64, device=dev)
-    bad_sum = torch.zeros((), dtype=torch.int64, device=dev)
-    n_chunks = 0
-    with task_timer("streamed build: J3e emission chunks"):
-        for c in range(max_chunks):
-            m_c = bases[c + 1] - bases[c]
-            if m_c == 0:
-                continue
-            bwt_d, sa_d, ck, bad = _chunk_core(
-                **st, s0=s_starts[c], s1=s_starts[c + 1], base=bases[c],
-                m_true=m_c, n_text=n, chunk_b=chunk_b,
+        with task_timer("streamed build: J3a dict sort, parse-BWT, "
+                        "chunk table", "j3a") as j3a:
+            st, table = _dict_state_core(
+                *state[:-1], ncuts + 1, D, dict_total, nsuf, chunk_target, w,
+                fused._bucket(dict_total), fused._bucket(nsuf), max_chunks,
+                n_levels=n_levels, alphabet=alphabet,
             )
-            ck_sum += ck
-            bad_sum += bad
-            n_chunks += 1
-            if fetch:
-                out.put(bases[c], bwt_d[:m_c], sa_d[:m_c])
-        out.flush()
-        checksum, nbad = torch.stack((ck_sum, bad_sum)).tolist()  # host sync
-    info.update(chunks_s=time.perf_counter() - t2, n_chunks=n_chunks,
-                peak_chunks=_peak(dev))
-    if nbad:
-        die(f"streamed assembly invariant violation: {nbad} local gids "
-            "exceed the chunk-local table (chunk table sizing bug)")
-    checksum &= _MASK64
-    info["checksum"] = checksum
-    if not fetch:
-        return None, total, checksum
-    if want_rssa:
-        ssa, esa = out.runs.finish(total)
-        return out.runs.nruns, total, checksum, ssa, esa
-    return out.runs.nruns, total, checksum
+            del state
+            st = {k: st[k] for k in _CHUNK_KEYS}
+            with span("j3a.table_read"):
+                table = host_read(table).tolist()
+        info.update(j3a_s=j3a.seconds, peak_j3a=_peak(dev))
+        s_starts = table[: max_chunks + 1]
+        bases = table[max_chunks + 1: 2 * (max_chunks + 1)]
+        max_m, total = table[-2], table[-1]
+        if total != n + 1:
+            die(f"streamed assembly sizing bug: total {total} != n+1 "
+                f"{n + 1}")
+        if bases[-1] != total:
+            die(f"streamed assembly needs more than {max_chunks} chunks at "
+                f"chunk_target={chunk_target} (covered {bases[-1]}/{total});"
+                " raise chunk_target or max_chunks")
+        chunk_b = fused._bucket(max(max_m, 1))
+        info["chunk_b"] = chunk_b
+
+        out = _ChunkWriter(bwt_fp, sa_fp, sa_dtype, want_rssa)
+        ck_sum = torch.zeros((), dtype=torch.int64, device=dev)
+        bad_sum = torch.zeros((), dtype=torch.int64, device=dev)
+        n_chunks = 0
+        with task_timer("streamed build: J3e emission chunks",
+                        "j3e") as j3e:
+            for c in range(max_chunks):
+                m_c = bases[c + 1] - bases[c]
+                if m_c == 0:
+                    continue
+                bwt_d, sa_d, ck, bad = _chunk_core(
+                    **st, s0=s_starts[c], s1=s_starts[c + 1], base=bases[c],
+                    m_true=m_c, n_text=n, chunk_b=chunk_b,
+                )
+                ck_sum += ck
+                bad_sum += bad
+                n_chunks += 1
+                if fetch:
+                    out.put(bases[c], bwt_d[:m_c], sa_d[:m_c])
+            out.flush()
+            with span("j3e.checksum_read"):
+                checksum, nbad = host_read(
+                    torch.stack((ck_sum, bad_sum))).tolist()
+        info.update(chunks_s=j3e.seconds, n_chunks=n_chunks,
+                    peak_chunks=_peak(dev))
+        if nbad:
+            die(f"streamed assembly invariant violation: {nbad} local gids "
+                "exceed the chunk-local table (chunk table sizing bug)")
+        checksum &= _MASK64
+        info["checksum"] = checksum
+        if not fetch:
+            return None, total, checksum
+        if not want_rssa:
+            return out.runs.nruns, total, checksum
+        with span("files"):
+            ssa, esa = out.runs.finish(total)
+            for fp, v in ((ssa_fp, ssa), (esa_fp, esa)):
+                if fp is not None:
+                    fp.write(v.astype(sa_dtype).tobytes())
+    return out.runs.nruns, total, checksum, ssa, esa
+
+
+def pfbwt_fused_stream_records(records, params, *, open_out=None,
+                               want_sa=False, want_rssa=False,
+                               sa_dtype=np.dtype("<u8"), device="cuda", **kw):
+    """Streamed run over FASTA records (build_stream + pfbwt_fused_stream,
+    whose keywords ``kw`` takes), as ops/fused.pfbwt_fused_records is for
+    the monolithic build.  ``open_out(ext)``, where given, opens output
+    ``ext`` for writing as a context manager of a binary file: ``bwt``,
+    ``sa`` with ``want_sa``, ``ssa`` and ``esa`` with ``want_rssa``.  They
+    are opened once the text's width is checked, so a text too long for
+    ``sa_dtype`` dies before any output or the card is touched.  Returns
+    (pfbwt_fused_stream's result, info): ``info`` holds its keys and the
+    wall time of build_stream (stream_s, span ``stream``)."""
+    from .parse import build_stream
+
+    exts = ()
+    if open_out is not None:
+        exts = ("bwt",) + ("sa",) * want_sa + ("ssa", "esa") * want_rssa
+    info = {}
+    with build(info):
+        with span("stream") as stream:
+            C, _, _ = build_stream(records, params)
+        check_text_width(int(C.shape[0]), sa_dtype)
+        with ExitStack() as files:
+            fps = {e: files.enter_context(open_out(e)) for e in exts}
+            out = pfbwt_fused_stream(
+                C, params.w, params.p, bwt_fp=fps.get("bwt"),
+                sa_fp=fps.get("sa"), ssa_fp=fps.get("ssa"),
+                esa_fp=fps.get("esa"), sa_dtype=sa_dtype,
+                want_rssa=want_rssa, device=device, info=info, **kw)
+    info["stream_s"] = stream.seconds
+    return out, info
