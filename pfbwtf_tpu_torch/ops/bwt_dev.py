@@ -12,6 +12,8 @@ In the fused build the shapes follow the JAX package's bucket grid
 ``assemble_bwt_dev``, the staged build's stage 3, runs at the true sizes
 and reads the engine variables of pfbwtf_tpu's assemble_bwt_jax at each
 call: PFBWT_FANOUT, PFBWT_SORT_IMPL, PFBWT_EMIT_WIDE and PFBWT_DICT_KEYS.
+Both finish in ``bwt_result_dev``: the run-length sampling of
+ops/bwt.bwt_result on the device, then one download of the outputs.
 """
 
 import os
@@ -22,7 +24,8 @@ import torch
 
 from ..constants import Dollar, EndOfDict, EndOfWord
 from ..utils.device import resolve_device
-from .bwt import BWTResult, bwt_result
+from ..utils.timer import count, host_read, span
+from .bwt import BWTResult
 from .carry import carry_max, carry_min
 from .suffix import (compact_indices, dict_key_plan, doubling_with_captures,
                      fanout_impl, packed_dict_keys, sort_impl)
@@ -323,9 +326,86 @@ def assemble_bwt_dev(dict_flat: np.ndarray, w: int, occs: np.ndarray,
         n_levels=capture_levels(max_len, w, alphabet), fanout=fanout_impl(),
         impl=sort_impl(), alphabet=alphabet,
     )
-    sa_np = None
-    if want_sa or want_rssa:
-        sa_vals[0] = n
-        sa_np = sa_vals.cpu().numpy().view(np.uint64)
-    return bwt_result(bwtc.cpu().numpy(), sa_np, want_sa, want_rssa,
-                      sa_dtype)
+    return bwt_result_dev(bwtc, sa_vals, total, n, want_sa, want_rssa,
+                          sa_dtype)
+
+
+def bwt_result_dev(bwt_d: torch.Tensor, sa_d: torch.Tensor, total: int,
+                   n: int, want_sa: bool, want_rssa: bool, sa_dtype,
+                   info: dict = None) -> BWTResult:
+    """ops/bwt.bwt_result finished where ``bwt_d`` and ``sa_d`` live: the
+    run count, the (position, sample) pairs at run starts (.ssa) and run
+    ends (.esa) already in ``sa_dtype``, and the asked-for outputs brought
+    to the host.  The first ``total`` entries of ``bwt_d`` (uint8) and
+    ``sa_d`` (int64 holding the uint64 SA) are the result; ``sa_d[0]`` is
+    set to ``n`` when the SA is used.
+
+    Span ``fetch.sample`` holds the sampling and the read of the run
+    count (one sync); span ``fetch.download`` copies the BWT, the SA when
+    ``want_sa`` and the pairs when ``want_rssa`` into views of one pinned
+    host block and waits once (one sync).  The returned arrays are views
+    of that block, so a result keeps it alive and the block goes back to
+    torch's host cache only when the result dies.  On the CPU the arrays
+    are the tensors' own memory.  Counters: ``sample_dev`` 1,
+    ``d2h_bytes`` every byte read back, ``pinned_bytes`` the block's size
+    (on the card only).  ``info``, where given, receives ``sample_s`` and
+    ``download_s``."""
+    sa_dtype = np.dtype(sa_dtype)
+    bwt = bwt_d[:total]
+    outs = {}  # name: (tensor, numpy dtype), 8-byte lanes first so that
+    # every view of the pinned block is aligned
+    with span("fetch.sample") as sample:
+        count("sample_dev")
+        if want_sa or want_rssa:
+            sa_d[0] = n
+            sa = sa_d[:total]
+        if want_sa:
+            outs["sa"] = (sa, np.uint64)
+        run_start = torch.empty(total, dtype=torch.bool, device=bwt.device)
+        run_start[0] = True
+        torch.ne(bwt[1:], bwt[:-1], out=run_start[1:])
+        nruns = int(host_read(torch.count_nonzero(run_start)))
+        if want_rssa:
+            rs = torch.nonzero_static(run_start, size=nruns).squeeze(1)
+            re = torch.empty_like(rs)
+            re[:-1] = rs[1:] - 1
+            re[-1] = total - 1
+            lanes = torch.int32 if sa_dtype.itemsize == 4 else torch.int64
+            for name, pos in (("ssa", rs), ("esa", re)):
+                pairs = torch.empty((nruns, 2), dtype=lanes,
+                                    device=bwt.device)
+                pairs[:, 0] = pos
+                pairs[:, 1] = sa.index_select(0, pos)
+                outs[name] = (pairs.view(-1), sa_dtype)
+        del run_start
+        outs["bwt"] = (bwt, np.uint8)
+    with span("fetch.download") as download:
+        arrays = _download(outs)
+    if info is not None:
+        info.update(sample_s=sample.seconds, download_s=download.seconds)
+    return BWTResult(bwt=arrays["bwt"], sa=arrays.get("sa"), nruns=nruns,
+                     ssa=arrays.get("ssa"), esa=arrays.get("esa"))
+
+
+def _download(outs: dict) -> dict:
+    """The host arrays of ``outs`` (name: (1-D tensor, numpy dtype), on
+    one device): on the card one pinned block, each tensor copied without
+    blocking into its own view of it, then one wait; on the CPU the
+    tensors' own memory."""
+    nbytes = sum(t.numel() * t.element_size() for t, _ in outs.values())
+    count("d2h_bytes", nbytes)
+    count("syncs")  # the wait, on the CPU too, as the bytes are
+    dev = outs["bwt"][0].device
+    if dev.type == "cpu":
+        return {k: t.numpy().view(dt) for k, (t, dt) in outs.items()}
+    count("pinned_bytes", nbytes)
+    block = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    arrays, off = {}, 0
+    for k, (t, dt) in outs.items():
+        nb = t.numel() * t.element_size()
+        h = block[off:off + nb].view(t.dtype)
+        h.copy_(t, non_blocking=True)
+        arrays[k] = h.numpy().view(dt)
+        off += nb
+    torch.cuda.current_stream(dev).synchronize()
+    return arrays

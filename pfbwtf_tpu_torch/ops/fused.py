@@ -13,10 +13,12 @@ between stages (the fused pipeline of pfbwtf_tpu/ops/fused.py).
                + SA values.
 
 The host reads four scalars after J2 (they size J3's buckets) and the
-checksum after J3.  Covers run_parser + run_pfbwt of the reference
-(src/pfbwt-f.cpp:209-349).  Buckets and intermediates have the JAX
-package's shapes, so the two can be compared stage by stage; uint64 hash
-words and SA values ride in int64 with the same bits.
+checksum after J3; the runs are sampled on the device too, and the
+outputs come back through one pinned host block (bwt_dev.bwt_result_dev).
+Covers run_parser + run_pfbwt of the reference (src/pfbwt-f.cpp:209-349).
+Buckets and intermediates have the JAX package's shapes, so the two can
+be compared stage by stage; uint64 hash words and SA values ride in int64
+with the same bits.
 
 pfbwt_fused_device reads the JAX package's engine variables at each call:
 PFBWT_DICT_KEYS (``dict_alphabet``), PFBWT_FANOUT and PFBWT_SORT_IMPL
@@ -44,8 +46,8 @@ from ..utils.errors import die
 from ..utils.tables import codes_or_die, ntoa_codes
 from ..utils.timer import build, host_read, span
 from . import suffix
-from .bwt import bwt_result
-from .bwt_dev import _exclusive_cumsum, _set_drop, assemble_core, dict_sort_part
+from .bwt_dev import (_exclusive_cumsum, _set_drop, assemble_core,
+                      bwt_result_dev, dict_sort_part)
 from .carry import carry_max
 from .hash import cut_mask
 from .parse_bwt import parse_bwt_core
@@ -512,8 +514,9 @@ def pfbwt_fused_device(C: np.ndarray, w: int, p: int, want_sa: bool = False,
     (utils/timer): host_s (``host_prep``: input check and padding), j2_s
     (``j2``: upload + J2, ending in the host read of its sizes), j3_s
     (``j3``: J3, ending in the checksum read) and fetch_s (``fetch``:
-    download_s + sample_s, the run-length sampling); as the outermost
-    entry point also spans, counts and build_id."""
+    sample_s, the run-length sampling on the device, + download_s, the
+    outputs' copy to pinned host memory: bwt_dev.bwt_result_dev); as the
+    outermost entry point also spans, counts and build_id."""
     info = {}
     with build(info):
         dev = resolve_device(device)
@@ -561,15 +564,9 @@ def pfbwt_fused_device(C: np.ndarray, w: int, p: int, want_sa: bool = False,
             "rounds": dict(suffix.rounds),
         })
         with span("fetch") as fetch:
-            with span("fetch.download") as download:
-                sa_d[0] = n
-                sa_np = (host_read(sa_d[:total]).numpy().view(np.uint64)
-                         if want_sa or want_rssa else None)
-                bwt_np = host_read(bwt_d[:total]).numpy()
-            with span("fetch.sample") as sample:
-                res = bwt_result(bwt_np, sa_np, want_sa, want_rssa, sa_dtype)
-        info.update(r=res.nruns, fetch_s=fetch.seconds,
-                    download_s=download.seconds, sample_s=sample.seconds)
+            res = bwt_result_dev(bwt_d, sa_d, total, n, want_sa, want_rssa,
+                                 sa_dtype, info=info)
+        info.update(r=res.nruns, fetch_s=fetch.seconds)
     return res, info
 
 

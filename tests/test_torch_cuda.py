@@ -15,6 +15,8 @@ from pfbwtf_tpu_torch.cli.pfbwt_f import main as cli_main
 from pfbwtf_tpu_torch.markers.ma_dev import marker_array_from_sa_dev
 from pfbwtf_tpu_torch.markers.mps import write_mps_runs
 from pfbwtf_tpu_torch.markers.rle_window import RleWindowArray
+from pfbwtf_tpu_torch.ops.bwt import bwt_result
+from pfbwtf_tpu_torch.ops.bwt_dev import bwt_result_dev
 from pfbwtf_tpu_torch.ops.bwt_mmap import assemble_bwt_stream
 from pfbwtf_tpu_torch.ops import carry, gather
 from pfbwtf_tpu_torch.ops.cuda import carry_scan as carry_kernels
@@ -220,6 +222,53 @@ def test_k5_fused_64mib_checksum_equals_plain_sites(card, monkeypatch):
     assert info["checksum"] == winfo["checksum"]
     for field in ("bwt", "sa", "ssa", "esa"):
         assert np.array_equal(getattr(got, field), getattr(want, field))
+
+
+def test_fused_64mib_device_tail_equals_host_tail(card):
+    """The fused build of the 64 MiB pan-genome samples its runs on the
+    card: the same run count and .ssa/.esa as the host tail over the
+    downloaded BWT and SA, every output in one pinned block, and a result
+    kept across two more builds (whose blocks the host cache recycles)
+    still reads as it did.  The tail again over the same arrays on the
+    card, with U32 and every want, equals the host tail too."""
+    fa = _pan_fasta_records(42, 8 << 20, 8, nmut=8389)
+    kw = dict(want_sa=True, want_rssa=True)
+    kept, info = pfbwt_fused_records(fa, ParserParams(), device="cuda", **kw)
+    c = info["counts"]
+    assert c["sample_dev"] == 1
+    total = kept.bwt.shape[0]
+    out_bytes = 9 * total + 32 * kept.nruns
+    assert c["pinned_bytes"] == out_bytes
+    want = bwt_result(kept.bwt, kept.sa, True, True, np.uint64)
+    assert kept.nruns == want.nruns == info["r"]
+    assert kept.ssa.tobytes() == want.ssa.tobytes()
+    assert kept.esa.tobytes() == want.esa.tobytes()
+    for field in ("bwt", "sa", "ssa", "esa"):
+        assert torch.from_numpy(getattr(kept, field)).is_pinned(), field
+    first = {f: getattr(kept, f).copy() for f in ("bwt", "sa", "ssa", "esa")}
+    for _ in range(2):
+        res, _ = pfbwt_fused_records(fa, ParserParams(), device="cuda", **kw)
+        assert res.bwt.tobytes() == first["bwt"].tobytes()
+        del res
+    for f, a in first.items():
+        assert getattr(kept, f).tobytes() == a.tobytes(), f
+
+    bwt_d = torch.from_numpy(kept.bwt).to(card)
+    sa_d = torch.from_numpy(kept.sa.view(np.int64)).to(card)
+    for sa_dtype in (np.uint32, np.uint64):
+        for want_sa in (False, True):
+            for want_rssa in (False, True):
+                got = bwt_result_dev(bwt_d, sa_d, total, total - 1, want_sa,
+                                     want_rssa, sa_dtype)
+                want = bwt_result(kept.bwt, kept.sa, want_sa, want_rssa,
+                                  sa_dtype)
+                assert got.nruns == want.nruns
+                for f in ("bwt", "sa", "ssa", "esa"):
+                    g, w = getattr(got, f), getattr(want, f)
+                    assert (g is None) == (w is None), f
+                    if w is not None:
+                        assert g.dtype == w.dtype, f
+                        assert g.tobytes() == w.tobytes(), (f, sa_dtype)
 
 
 ELEVEN = ("dict", "occ", "parse", "n", "bwlast", "ilist", "bwsai", "bwt",
