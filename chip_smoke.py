@@ -65,7 +65,11 @@ line:
    card's; and simplebwt (the brute-force SA oracle) over the records each
    padded with w 'A's: its .bwt and .sa equal the staged build's.
 9. The staged build of the 64 MB input: .bwt/.sa/.ssa/.esa equal phase
-   5's, one K1 launch, stage seconds and peak device memory; then
+   5's, one K1 launch, stage seconds and peak device memory; then its
+   stage 3 again on the card from its checkpoint files, with the emission
+   forced onto the path it takes past 63 key bits (assemble_core with
+   wide=True: the scatter fan-out and the stable two-key sort):
+   .bwt/.sa/.ssa/.esa equal, seconds and peak printed; then
    --chunk-mb 16 on the same input: all eleven files equal the
    whole-array staged run's, one K1 launch per chunk.  Phase 9b,
    merge_pfp at full width: the 8 records as 4 FASTA shards of 2, three
@@ -95,17 +99,9 @@ line:
    (marker window 1) against vcf_scan's FASTA and .mps of the same
    haplotype; dump_markers and readable_markers on the .ma, one line a run
    and one a position.
-12. The opt-in engines at 64 MB (after phase 9c): the fused build of
-   phase 5's input once under each of PFBWT_SORT_IMPL=radix,
-   PFBWT_FANOUT=scatter and merge, PFBWT_DICT_KEYS=acgt3,
-   PFBWT_DBL_SUBSET=4 and 8, PFBWT_DBL_INV=scatter and PFBWT_J3_SPLIT=1,
-   each followed by the default build: every run's .bwt/.sa/.ssa/.esa
-   and checksum equal phase 5's, one K1 launch each; seconds, doubling
-   rounds and peak device memory printed.  Then acgt3 on the streamed
-   build, PFBWT_J2_STREAM=1 on it, and the staged build's stage 3 on the
-   card from phase 9's checkpoint files, default, with acgt3 and with
-   PFBWT_EMIT_WIDE=1 (the fused build does not read that one): all give
-   the default's files.
+12. No phase: the port reads none of pfbwtf_tpu's engine variables, so
+   there is nothing to run under them; the other phases keep their
+   numbers.
 13. The pod parse at 64 MB through the CLI: pfbwt_f -s -r --shards 4
    --workers 4 (spawn workers parse the shards on the host), then
    --workers 1: the eleven files equal phase 9's, one K1 launch in this
@@ -152,6 +148,7 @@ import os
 import subprocess
 import sys
 import time
+from functools import partial
 from unittest import mock
 
 import numpy as np
@@ -1122,6 +1119,7 @@ def phase_staged_main(fasta: str, C_len: int, fused_files):
     print(f"64 MB staged peak device memory: {peak} bytes "
           f"({peak / 2**30:.2f} GiB); K1 launches {launches}; "
           ".bwt/.sa/.ssa/.esa equal the fused build")
+    stage3_wide(whole_pre, whole, info["assembly_s"])
 
     chunk = CHUNK_MB << 20
     chunk_pre = os.path.join(out_dir, "pan64_chunked")
@@ -1143,6 +1141,43 @@ def phase_staged_main(fasta: str, C_len: int, fused_files):
           "whole-array staged build")
     remove_files(chunk_pre)
     return launches, claunch, whole_pre, whole, info
+
+
+def stage3_wide(whole_pre: str, whole, assembly_s: float):
+    """Phase 9's stage 3 again on the card from its checkpoint files, with
+    the emission forced onto the path it takes past 63 key bits
+    (assemble_core(wide=True): the scatter fan-out, whose running max is
+    K5, and the stable two-key (gid, j) sort).  .bwt/.sa/.ssa/.esa equal
+    phase 9's."""
+    import torch
+
+    from pfbwtf_tpu_torch.io import formats
+    from pfbwtf_tpu_torch.ops import bwt_dev
+
+    arrays = (
+        formats.read_uint(whole_pre + ".dict", np.uint8), W,
+        formats.read_uint(whole_pre + ".occ", formats.U64).astype(np.int64),
+        formats.read_uint(whole_pre + ".bwlast", np.uint8),
+        formats.read_uint(whole_pre + ".ilist", formats.U64).astype(np.int64),
+        formats.read_uint(whole_pre + ".bwsai", formats.U64),
+        formats.read_n(whole_pre + ".n"),
+    )
+    fresh_memory()
+    t0 = time.perf_counter()
+    with mock.patch.object(bwt_dev, "assemble_core",
+                           partial(bwt_dev.assemble_core, wide=True)):
+        res = bwt_dev.assemble_bwt_dev(*arrays, want_sa=True,
+                                       want_rssa=True, device="cuda")
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = result_files(res)
+    check(all(got[k] == whole[k] for k in got), "64 MB stage 3, wide "
+          "emission: .bwt/.sa/.ssa/.esa differ from the staged build's")
+    print(f"64 MB stage 3 on the card, wide emission (scatter fan-out, "
+          f"two-key sort): {secs:.4f} s (upload, download and run sampling "
+          f"included; the default emission's assembly_s {assembly_s:.4f}); "
+          f"peak device memory {peak} bytes ({peak / 2**30:.2f} GiB); "
+          ".bwt/.sa/.ssa/.esa equal the staged build's")
 
 
 MERGED_EXTS = ("dict", "occ", "parse", "n", "bwlast", "ilist", "bwsai")
@@ -1224,127 +1259,6 @@ def phase_merge_main(fasta: str, whole_pre: str, whole):
     remove_files(merged)
     for shard in shard_fastas:
         os.remove(shard)
-    return launches
-
-
-# phase 12: each opt-in engine of the fused build (PFBWT_EMIT_WIDE is read
-# by the staged build's stage 3 only, and runs there)
-ENGINE_RUNS = (
-    ("PFBWT_SORT_IMPL", "radix"), ("PFBWT_FANOUT", "scatter"),
-    ("PFBWT_FANOUT", "merge"), ("PFBWT_DICT_KEYS", "acgt3"),
-    ("PFBWT_DBL_SUBSET", "4"), ("PFBWT_DBL_SUBSET", "8"),
-    ("PFBWT_DBL_INV", "scatter"), ("PFBWT_J3_SPLIT", "1"),
-)
-ASSEMBLY_RUNS = ((), (("PFBWT_DICT_KEYS", "acgt3"),),
-                 (("PFBWT_EMIT_WIDE", "1"),))
-MAIN_CHECKSUM = 2251810500740011  # phase 5's, the default engines'
-
-
-def fused_engine_run(C, pairs=()):
-    """The 64 MB fused build under the variables ``pairs``.  Returns
-    (result, info, the build's K1 launches, seconds, peak bytes)."""
-    import torch
-
-    from pfbwtf_tpu_torch.ops.fused import pfbwt_fused_device
-
-    with mock.patch.dict(os.environ, dict(pairs)):
-        fresh_memory()
-        t0 = time.perf_counter()
-        res, info = pfbwt_fused_device(C, W, P, device="cuda", want_sa=True,
-                                       want_rssa=True)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-    return (res, info, info["counts"].get("k1_launches", 0), secs,
-            torch.cuda.max_memory_allocated())
-
-
-def phase_engines_main(C, mono_res, whole_pre: str, whole):
-    """Phase 12: the opt-in engines at 64 MB.  The fused build once under
-    each variable of ENGINE_RUNS, each followed by the default build in
-    the same call: .bwt/.sa/.ssa/.esa and the checksum equal the default
-    phase 5 build's, one K1 launch each; seconds, doubling rounds and peak
-    device memory printed.  Then PFBWT_DICT_KEYS=acgt3 on the streamed
-    build, PFBWT_J2_STREAM=1 on it (the streamed J2 chosen by the
-    variable), and the staged build's device assembly (stage 3 from
-    phase 9's checkpoint files) default, with acgt3 and with
-    PFBWT_EMIT_WIDE=1: every one gives the default's files."""
-    import torch
-
-    from pfbwtf_tpu_torch.io import formats
-    from pfbwtf_tpu_torch.ops.bwt_dev import assemble_bwt_dev
-
-    launches = {}
-
-    def line(label, res, info, k1n, secs, peak):
-        check(k1n == 1, f"{label}: {k1n} K1 launches, not 1")
-        check(info["checksum"] == MAIN_CHECKSUM,
-              f"{label}: checksum {info['checksum']}, not {MAIN_CHECKSUM}")
-        for field in ("bwt", "sa", "ssa", "esa"):
-            check(np.array_equal(getattr(res, field),
-                                 getattr(mono_res, field)),
-                  f"{label}: .{field} differs from the default build")
-        rounds = info["rounds"]
-        print(f"{label}: {secs:.4f} s (J2 {info['j2_s']:.4f}, J3 "
-              f"{info['j3_s']:.4f}, download + sampling "
-              f"{info['fetch_s']:.4f}); dict doubling rounds "
-              f"{rounds['dict_sa']} ({rounds['dict_sa_subset']} subset), "
-              f"parse rounds {rounds['parse_sa']}; peak "
-              f"device memory {peak} bytes ({peak / 2**30:.2f} GiB); K1 "
-              f"launches {k1n}; checksum {info['checksum']}; files equal the "
-              "default build")
-
-    for var, value in ENGINE_RUNS:
-        label = f"64 MB fused {var}={value}"
-        out = fused_engine_run(C, ((var, value),))
-        line(label, *out)
-        launches[label] = out[2]
-        del out
-        line(f"64 MB fused default (after {var}={value})",
-             *fused_engine_run(C))
-
-    default_files = result_files(mono_res)
-    for var, value in (("PFBWT_DICT_KEYS", "acgt3"),
-                       ("PFBWT_J2_STREAM", "1")):
-        label = f"64 MB fused -m {var}={value}"
-        with mock.patch.dict(os.environ, {var: value}):
-            files, out, info, k1n, secs, peak = stream_build(C)
-        check(k1n == 1, f"{label}: {k1n} K1 launches, not 1")
-        check(files == default_files,
-              f"{label}: the files differ from the default fused build")
-        if var == "PFBWT_J2_STREAM":
-            check(info["j2_stream"], f"{label}: the monolithic J2 ran")
-        else:
-            check(info["alphabet"] == "acgt3", f"{label}: byte keys ran")
-        print(f"{label}: {secs:.4f} s ({stage_line(info)}); peak device "
-              f"memory {peak} bytes ({peak / 2**30:.2f} GiB); K1 launches "
-              f"{k1n}; files equal the default fused build")
-        launches[label] = k1n
-
-    arrays = (
-        formats.read_uint(whole_pre + ".dict", np.uint8), W,
-        formats.read_uint(whole_pre + ".occ", formats.U64).astype(np.int64),
-        formats.read_uint(whole_pre + ".bwlast", np.uint8),
-        formats.read_uint(whole_pre + ".ilist", formats.U64).astype(np.int64),
-        formats.read_uint(whole_pre + ".bwsai", formats.U64),
-        formats.read_n(whole_pre + ".n"),
-    )
-    for pairs in ASSEMBLY_RUNS:
-        label = ("64 MB staged stage 3 on the card "
-                 + (" ".join(f"{k}={v}" for k, v in pairs) or "default"))
-        with mock.patch.dict(os.environ, dict(pairs)):
-            fresh_memory()
-            t0 = time.perf_counter()
-            res = assemble_bwt_dev(*arrays, want_sa=True, want_rssa=True,
-                                   device="cuda")
-            secs = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        got = result_files(res)
-        check(all(got[k] == whole[k] for k in got),
-              f"{label}: .bwt/.sa/.ssa/.esa differ from phase 9's")
-        print(f"{label}: assembly {secs:.4f} s (upload, download and run "
-              f"sampling included); peak device memory {peak} bytes "
-              f"({peak / 2**30:.2f} GiB); .bwt/.sa/.ssa/.esa equal phase 9's")
-        del res, got
     return launches
 
 
@@ -1853,7 +1767,7 @@ def mesh_cli(label: str, argv, want, exts):
 
     fresh_memory()
     info = {}
-    suffix.rounds.update(parse_sa=0, dict_sa=0, dict_sa_subset=0)
+    suffix.rounds.update(parse_sa=0, dict_sa=0)
     k1.launches = 0
     t0 = time.perf_counter()
     rc = cli_main(argv, info=info)
@@ -2048,7 +1962,6 @@ def main() -> int:
          fasta64, C.shape[0], result_files(mono_res))
     by_path["merge_pfp 64 MB"] = phase_merge_main(fasta64, whole_pre, whole)
     phase_host_assembly_main(whole_pre, whole, staged_info)
-    by_path.update(phase_engines_main(C, mono_res, whole_pre, whole))
     by_path.update(phase_pod_main(fasta64, whole))
     by_path["staged -m 64 MB"] = phase_mmap_main(fasta64, whole_pre, whole)
     fused64 = result_files(mono_res)

@@ -9,15 +9,10 @@ followed by gathers for the BWT char and the SA sample.
 
 In the fused build the shapes follow the JAX package's bucket grid
 (nsuf_b, total_b) and the true sizes arrive as host integers;
-``assemble_bwt_dev``, the staged build's stage 3, runs at the true sizes
-and reads the engine variables of pfbwtf_tpu's assemble_bwt_jax at each
-call: PFBWT_FANOUT, PFBWT_SORT_IMPL, PFBWT_EMIT_WIDE and PFBWT_DICT_KEYS.
+``assemble_bwt_dev``, the staged build's stage 3, runs at the true sizes.
 Both finish in ``bwt_result_dev``: the run-length sampling of
 ops/bwt.bwt_result on the device, then one download of the outputs.
 """
-
-import os
-import warnings
 
 import numpy as np
 import torch
@@ -27,12 +22,10 @@ from ..utils.device import resolve_device
 from ..utils.timer import count, host_read, span
 from .bwt import BWTResult
 from .carry import carry_max, carry_min
-from .suffix import (compact_indices, dict_key_plan, doubling_with_captures,
-                     fanout_impl, packed_dict_keys, sort_impl)
+from .suffix import (capture_levels, compact_indices, doubling_with_captures,
+                     packed_dict_keys)
 
 _I64_MAX = 2**63 - 1
-# the merge fan-out's int32 marker keys hold first*2 and e*2+1 below it
-MERGE_MAX_LANES = 2**30
 
 
 def _exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -49,28 +42,23 @@ def _set_drop(size: int, idx, vals, device) -> torch.Tensor:
     return out[:size]
 
 
-def dict_sort_part(dict_flat: torch.Tensor, w: int, n_levels: int = None,
-                   alphabet: str = "byte"):
+def dict_sort_part(dict_flat: torch.Tensor, w: int, n_levels: int = None):
     """Dict suffix sort with exact equality captures and per-position
     metadata.  The suffix length of a position is its distance to the
     next separator (a reverse cummin), computed before the sort so the
-    doubling can capture blocks at level floor_pow2(len).  ``alphabet``
-    picks the key packing (suffix.dict_key_plan).
+    doubling can capture blocks at level floor_pow2(len).
     Returns (sa_all, C1, C2, suf_len, word_id)."""
     D = dict_flat.shape[0]
     iota = torch.arange(D, device=dict_flat.device)
     is_eow = dict_flat == EndOfWord
     is_sep = is_eow | (dict_flat == EndOfDict)
     word_id = _exclusive_cumsum(is_eow.to(torch.int64))
-    keys0, k0, fp_word = packed_dict_keys(dict_flat, w, alphabet)
-    _, t_min, _ = dict_key_plan(w, alphabet)
+    keys0, k0 = packed_dict_keys(dict_flat, w)
     sep_idx = torch.where(is_sep, iota, D)
     next_sep = carry_min(sep_idx, reverse=True)
     suf_len = next_sep - iota
-    sa_all, _, C1, C2 = doubling_with_captures(
-        keys0, suf_len, k0=k0, n_levels=n_levels, fp_word=fp_word,
-        t_min=t_min,
-    )
+    sa_all, _, C1, C2 = doubling_with_captures(keys0, suf_len, k0=k0,
+                                               n_levels=n_levels)
     return sa_all, C1, C2, suf_len, word_id
 
 
@@ -142,34 +130,22 @@ def emission_state(dict_flat, occs, nsuf_true: int, w: int, nsuf_b: int,
 def assemble_core(dict_flat, occs, bwlast, ilist, bwsai, nsuf_true: int,
                   total_true: int, w: int, nsuf_b: int, total_b: int,
                   sorted_state=None, seg_start=None, wide: bool = None,
-                  n_levels: int = None, fanout: str = "fill",
-                  impl: str = "lax", alphabet: str = "byte"):
+                  n_levels: int = None):
     """Emission-sort assembly -> (bwt chars, SA values), each total_b long.
 
-    Three fan-outs give each emission lane its suffix (suffix.fanout_impl):
-
-    - ``fill`` (the default): each quantity a lane needs (group id,
-      flags, ilist-slot base) is constant across its suffix's run, so
-      per-emitter differences are added at the runs' first slots and
-      integrated with one cumsum each;
-    - ``scatter``: suffix ids set at their first emission slots (strictly
-      increasing over the suffixes that emit) and filled forward by a
-      cummax;
-    - ``merge``: marker lanes (key first*2, value s+1) and slot lanes (key
-      e*2+1) in one sort, a cummax carries the owning suffix onto each
-      slot, and the slot lanes are compacted back to slot order.
-
-    Then one single-key sort of the packed (gid, j, flags) key gives the
-    order.  Where that key would pass 63 bits (or ``wide`` forces it), and
-    for ``impl="radix"`` with scatter or merge, a stable two-key sort on
-    (gid, j) runs instead: the JAX package's radix argsort of the same
-    pair.  fill where it is ineligible, and merge past 2**30 lanes, warn
-    and take scatter, as in the JAX package.  ``alphabet`` is the key
-    packing of the dict sort when ``sorted_state`` is not given."""
+    Each emission lane needs its suffix's group id, BWT-char flags and
+    ilist-slot base.  Where the packed (gid, j, flags) key fits 63 bits,
+    each is constant across its suffix's run of lanes, so per-emitter
+    differences are added at the runs' first slots and integrated with
+    one cumsum each (the fill fan-out), and one single-key sort of the
+    packed key gives the order.  Past 63 bits, or where ``wide`` forces
+    it, suffix ids set at their first emission slots (strictly increasing
+    over the suffixes that emit) are filled forward by a running max (the
+    scatter fan-out), and a stable two-key sort on (gid, j) gives the
+    order, exact at any width: the JAX package's path past 63 bits."""
     dev = dict_flat.device
     if sorted_state is None:
-        sorted_state = dict_sort_part(dict_flat, w, n_levels=n_levels,
-                                      alphabet=alphabet)
+        sorted_state = dict_sort_part(dict_flat, w, n_levels=n_levels)
     (
         sa_kept, suf_valid, ls, gid, u, counts, first, flags, ls_tab, seg_u,
     ) = emission_state(
@@ -181,35 +157,8 @@ def assemble_core(dict_flat, occs, bwlast, ilist, bwsai, nsuf_true: int,
     KB = int(np.ceil(np.log2(m_ilist + 2)))
     nsuf_bits = int(np.ceil(np.log2(nsuf_b + 2)))
     narrow = max(dict_flat.shape[0], total_b) < 2**31 - 2
-    single_ok = nsuf_bits + KB + 9 <= 63 and not wide
-    if fanout == "fill" and not single_ok:
-        warnings.warn(
-            "PFBWT_FANOUT=fill ineligible (emission key exceeds 63 bits"
-            " or wide sort forced); using the scatter engine",
-            stacklevel=2,
-        )
-    merge_ok = nsuf_b + total_b < MERGE_MAX_LANES
-    if fanout == "merge" and not merge_ok:
-        warnings.warn(
-            "PFBWT_FANOUT=merge ineligible (nsuf_b + total_b >= 2^30);"
-            " using the scatter engine",
-            stacklevel=2,
-        )
 
-    def sorted_key(gid_l, j_l, flags_l):
-        key = (gid_l << (KB + 9)) | (j_l << 9) | flags_l
-        key_ord = torch.sort(torch.where(e_valid, key, _I64_MAX)).values
-        gid_ord = key_ord >> (KB + 9)
-        if narrow:
-            # the JAX package decodes into int32 when every index fits,
-            # which wraps the padded lanes' sentinel group; wrapping the
-            # same way keeps the padded buffers (and the checksum) equal
-            gid_ord = gid_ord.to(torch.int32).to(torch.int64)
-        ls_ord = ls_tab[torch.clamp(gid_ord, 0, nsuf_b - 1)]
-        return _emit_decode(key_ord & 511, (key_ord >> 9) & ((1 << KB) - 1),
-                            ls_ord, bwlast, bwsai, m_ilist)
-
-    if fanout == "fill" and single_ok:
+    if nsuf_bits + KB + 9 <= 63 and not wide:
         emit = counts > 0
         sidx = torch.arange(nsuf_b, device=dev)
         # index of the last emitter strictly before s
@@ -228,30 +177,25 @@ def assemble_core(dict_flat, occs, bwlast, ilist, bwsai, nsuf_true: int,
         flags_lane = fill(flags)
         base_lane = fill(seg_u - first)
         E_j = ilist[torch.clamp(eidx + base_lane, 0, m_ilist - 1)]
-        return sorted_key(gid_lane, E_j, flags_lane)
-    if fanout == "merge" and merge_ok:
-        mkey = torch.cat((first * 2, eidx * 2 + 1))
-        mval = torch.cat((torch.arange(nsuf_b, device=dev) + 1,
-                          torch.zeros(total_b, dtype=torch.int64,
-                                      device=dev)))
-        mkey_s, order = torch.sort(mkey, stable=True)
-        run = carry_max(mval[order])
-        del mkey, mval, order
-        # the slot lanes are exactly total_b of them: no fill lanes
-        slot_pos = torch.nonzero((mkey_s & 1) == 1).flatten()
-        E_suffix = torch.clamp(run[slot_pos] - 1, 0, nsuf_b - 1)
-        del mkey_s, run, slot_pos
-    else:
-        mark = _set_drop(
-            total_b, torch.where(counts > 0, first, total_b),
-            torch.arange(nsuf_b, device=dev) + 1, dev,
-        )
-        E_suffix = torch.clamp(carry_max(mark) - 1, 0, nsuf_b - 1)
+        key = (gid_lane << (KB + 9)) | (E_j << 9) | flags_lane
+        key_ord = torch.sort(torch.where(e_valid, key, _I64_MAX)).values
+        gid_ord = key_ord >> (KB + 9)
+        if narrow:
+            # the JAX package decodes into int32 when every index fits,
+            # which wraps the padded lanes' sentinel group; wrapping the
+            # same way keeps the padded buffers (and the checksum) equal
+            gid_ord = gid_ord.to(torch.int32).to(torch.int64)
+        ls_ord = ls_tab[torch.clamp(gid_ord, 0, nsuf_b - 1)]
+        return _emit_decode(key_ord & 511, (key_ord >> 9) & ((1 << KB) - 1),
+                            ls_ord, bwlast, bwsai, m_ilist)
+    mark = _set_drop(
+        total_b, torch.where(counts > 0, first, total_b),
+        torch.arange(nsuf_b, device=dev) + 1, dev,
+    )
+    E_suffix = torch.clamp(carry_max(mark) - 1, 0, nsuf_b - 1)
     within = eidx - first[E_suffix]
     E_j = ilist[torch.clamp(seg_u[E_suffix] + within, 0, m_ilist - 1)]
     gid_e = gid[E_suffix]
-    if single_ok and not (impl == "radix" and total_b < 2**31 - 2):
-        return sorted_key(gid_e, E_j, flags[E_suffix])
     # two-key sort on (gid, j), stable: exact at any width; invalid lanes
     # last
     hi = torch.where(e_valid, gid_e, nsuf_b)
@@ -263,37 +207,19 @@ def assemble_core(dict_flat, occs, bwlast, ilist, bwsai, nsuf_true: int,
     return _emit_decode(fl_ord, j_ord, ls_ord, bwlast, bwsai, m_ilist)
 
 
-def dict_alphabet_of_bytes(dict_flat: np.ndarray) -> str:
-    """The dict key packing from the dict bytes themselves (the staged
-    build's stage 3 receives the dict, not the input stream): ``byte``
-    unless PFBWT_DICT_KEYS=acgt3 and every byte is a separator (0, 1, 2)
-    or one of A, C, G, T."""
-    if os.environ.get("PFBWT_DICT_KEYS", "").lower() != "acgt3":
-        return "byte"
-    allowed = np.zeros(256, dtype=bool)
-    allowed[[0, 1, 2, 65, 67, 71, 84]] = True
-    return "acgt3" if bool(allowed[dict_flat].all()) else "byte"
-
-
 def assemble_bwt_dev(dict_flat: np.ndarray, w: int, occs: np.ndarray,
                      bwlast: np.ndarray, ilist: np.ndarray, bwsai, n: int,
                      want_sa: bool = False, want_rssa: bool = False,
                      sa_dtype=np.uint64, device="cuda") -> BWTResult:
     """Stage 3 of the staged build on ``device``: the .dict bytes, the
     occurrence counts and the parse-BWT files to the final BWT, the SA
-    (its first entry n) and the run-length samples.  The fan-out, the
-    sort engine and the key packing come from the variables read by
-    suffix.fanout_impl, suffix.sort_impl and dict_alphabet_of_bytes;
-    PFBWT_EMIT_WIDE (a non-zero integer) forces the two-key emission
-    sort.
+    (its first entry n) and the run-length samples.
 
     The JAX package pads every array to its bucket grid for its compile
     cache: EndOfDict separators after the dict, zero-count words,
     unreferenced ilist slots, invalid emission lanes.  None of them
     reaches the first n + 1 outputs, so the arrays go in at their own
     lengths and nsuf_b, total_b are the true sizes."""
-    from .fused import capture_levels
-
     dev = resolve_device(device)
     dict_flat = np.asarray(dict_flat, dtype=np.uint8)
     occs = np.asarray(occs, dtype=np.int64)
@@ -312,8 +238,6 @@ def assemble_bwt_dev(dict_flat: np.ndarray, w: int, occs: np.ndarray,
         )
     seps = np.flatnonzero(dict_flat <= 1)
     max_len = int(np.diff(np.concatenate(([-1], seps))).max()) - 1
-    alphabet = dict_alphabet_of_bytes(dict_flat)
-    wide = bool(int(os.environ.get("PFBWT_EMIT_WIDE", "0"))) or None
 
     def put(a, dtype):  # a writable copy: file arrays are read-only
         return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
@@ -322,9 +246,7 @@ def assemble_bwt_dev(dict_flat: np.ndarray, w: int, occs: np.ndarray,
         put(dict_flat, np.uint8), put(occs, np.int64),
         put(bwlast, np.uint8), put(ilist, np.int64),
         put(np.asarray(bwsai, dtype=np.uint64).view(np.int64), np.int64),
-        nsuf, total, w, nsuf, total, wide=wide,
-        n_levels=capture_levels(max_len, w, alphabet), fanout=fanout_impl(),
-        impl=sort_impl(), alphabet=alphabet,
+        nsuf, total, w, nsuf, total, n_levels=capture_levels(max_len, w),
     )
     return bwt_result_dev(bwtc, sa_vals, total, n, want_sa, want_rssa,
                           sa_dtype)

@@ -20,22 +20,12 @@ Buckets and intermediates have the JAX package's shapes, so the two can
 be compared stage by stage; uint64 hash words and SA values ride in int64
 with the same bits.
 
-pfbwt_fused_device reads the JAX package's engine variables at each call:
-PFBWT_DICT_KEYS (``dict_alphabet``), PFBWT_FANOUT and PFBWT_SORT_IMPL
-(suffix.py) and PFBWT_DBL_SUBSET (the dict doubling).  PFBWT_DBL_INV
-maps to nothing (suffix.py), nor do these two.  PFBWT_SCAN_IMPL picks
-the JAX package's cut-scan program (its XLA scan or its Pallas kernel);
-here the cut scan of a CUDA tensor is always kernel K1 and that of a
-CPU tensor its plain version.
-PFBWT_J3_SPLIT=1 makes the JAX package dispatch J3 as two programs,
-_j3_prep_core then _j3_emit_core, to keep XLA from fusing the emission
-gathers into the doubling loop's program; eager torch fuses nothing and
-always runs J3 as those two calls, with the prep outputs kept on the
-card between them.  Like the JAX fused build, this one does not read
-PFBWT_EMIT_WIDE (only the staged build's stage 3 does).
+The port reads none of pfbwtf_tpu's engine variables (PFBWT_FANOUT,
+PFBWT_SORT_IMPL, PFBWT_EMIT_WIDE, PFBWT_DICT_KEYS, PFBWT_DBL_SUBSET,
+PFBWT_DBL_INV, PFBWT_J3_SPLIT, PFBWT_SCAN_IMPL, PFBWT_J2_STREAM,
+PFBWT_J2_CHUNK), and under each of them the JAX package writes the
+port's files.
 """
-
-import os
 
 import numpy as np
 import torch
@@ -51,7 +41,7 @@ from .bwt_dev import (_exclusive_cumsum, _set_drop, assemble_core,
 from .carry import carry_max
 from .hash import cut_mask
 from .parse_bwt import parse_bwt_core
-from .suffix import compact_indices, dict_key_plan, fanout_impl, sort_impl
+from .suffix import capture_levels, compact_indices
 
 _MASK64 = (1 << 64) - 1
 _SIGN = -(1 << 63)  # int64 sign bit: flipping it orders int64 as uint64
@@ -70,30 +60,6 @@ def _bucket(n: int, floor: int = 1 << 12) -> int:
         return floor
     step = max(floor, 1 << (max(int(np.floor(np.log2(n))) - 3, 0)))
     return -(-n // step) * step
-
-
-def capture_levels(max_len: int, w: int, alphabet: str = "byte") -> int:
-    """Capture-table height for doubling_with_captures from the max dict
-    word length: levels up to floor_pow2(max_len), +1 safety, rounded up
-    to a multiple of 4; rows count from t_min, the smallest capture level
-    of the key packing (suffix.dict_key_plan)."""
-    _, t_min, _ = dict_key_plan(w, alphabet)
-    log2tmin = int(np.round(np.log2(t_min)))
-    need = int(np.floor(np.log2(max(max_len, 1)))) - log2tmin + 2
-    return max(4, -(-need // 4) * 4)
-
-
-def dict_alphabet(C: np.ndarray) -> str:
-    """The key packing of the dict suffix sort: ``byte`` unless
-    PFBWT_DICT_KEYS=acgt3 and the input is pure ACGT (an empty input
-    counts as pure), as in pfbwtf_tpu.  acgt3 starts the dict doubling
-    at 16 symbols, one round after byte keys' 8."""
-    if os.environ.get("PFBWT_DICT_KEYS", "").lower() != "acgt3":
-        return "byte"
-    if C.size == 0:
-        return "acgt3"
-    pure = bool(((C == 65) | (C == 67) | (C == 71) | (C == 84)).all())
-    return "acgt3" if pure else "byte"
 
 
 def speculative_nphrases(C_len: int, p: int) -> int:
@@ -380,10 +346,10 @@ def run_parse_stream(chars, C_len: int, w: int, p: int, nph_b: int,
 
 def _j3_prep_core(Tp, parse_ranks, occs, dict_start, dict_len, last, sai,
                   nphrases: int, D: int, dict_total: int, w: int,
-                  dict_b: int, n_levels: int = None, alphabet: str = "byte"):
-    """Dict byte array, dict suffix sort with captures (``alphabet``: the
-    key packing), true word-rank recovery, parse-BWT, and the ilist
-    segment starts permuted to the provisional word order.  Returns
+                  dict_b: int, n_levels: int = None):
+    """Dict byte array, dict suffix sort with captures, true word-rank
+    recovery, parse-BWT, and the ilist segment starts permuted to the
+    provisional word order.  Returns
     (dict_flat, sorted_state, bwlast, ilist, bwsai, seg_prov)."""
     dev = Tp.device
     nph_b = parse_ranks.shape[0]
@@ -407,8 +373,7 @@ def _j3_prep_core(Tp, parse_ranks, occs, dict_start, dict_len, last, sai,
         del mark, word, within, src, ch
 
     with span("j3.dict_sort"):
-        ss = dict_sort_part(dict_flat, w, n_levels=n_levels,
-                            alphabet=alphabet)
+        ss = dict_sort_part(dict_flat, w, n_levels=n_levels)
     with span("j3.ranks_bwt"):
         # word-start suffixes appear in SA order in byte-lex word order
         # (prefix-free), which recovers the true ranks
@@ -440,29 +405,26 @@ def _j3_prep_core(Tp, parse_ranks, occs, dict_start, dict_len, last, sai,
 def _final_core(Tp, parse_ranks, occs, dict_start, dict_len, last, sai,
                 nphrases: int, D: int, dict_total: int, nsuf_true: int,
                 total_true: int, w: int, dict_b: int, nsuf_b: int,
-                total_b: int, n_levels: int = None, fanout: str = "fill",
-                impl: str = "lax", alphabet: str = "byte"):
+                total_b: int, n_levels: int = None):
     """J3 -> (bwt chars, SA values, checksum).  The checksum is the
     wrapping uint64 sum of both padded buffers, as an int64 tensor."""
     prep = _j3_prep_core(
         Tp, parse_ranks, occs, dict_start, dict_len, last, sai,
         nphrases, D, dict_total, w, dict_b, n_levels=n_levels,
-        alphabet=alphabet,
     )
     with span("j3.emit"):
         return _j3_emit_core(*prep, occs, nsuf_true, total_true, w, nsuf_b,
-                             total_b, fanout=fanout, impl=impl)
+                             total_b)
 
 
 def _j3_emit_core(dict_flat, ss, bwlast, ilist, bwsai, seg_prov, occs,
                   nsuf_true: int, total_true: int, w: int, nsuf_b: int,
-                  total_b: int, fanout: str = "fill", impl: str = "lax"):
+                  total_b: int):
     """The emission half of J3 over _j3_prep_core's outputs: fan-out,
     final sort and decode -> (bwt chars, SA values, checksum)."""
     bwtc, sa_vals = assemble_core(
         dict_flat, occs, bwlast, ilist, bwsai, nsuf_true, total_true,
         w, nsuf_b, total_b, sorted_state=ss, seg_start=seg_prov,
-        fanout=fanout, impl=impl,
     )
     checksum = bwtc.to(torch.int64).sum() + sa_vals.sum()
     return bwtc, sa_vals, checksum
@@ -522,7 +484,6 @@ def pfbwt_fused_device(C: np.ndarray, w: int, p: int, want_sa: bool = False,
         dev = resolve_device(device)
         with span("host_prep") as host:
             codes_or_die(C)
-            alphabet = dict_alphabet(C)
             C_len = int(C.shape[0])
             # text length incl. per-record pads (pfparser.hpp:529-532)
             n = C_len
@@ -541,16 +502,14 @@ def pfbwt_fused_device(C: np.ndarray, w: int, p: int, want_sa: bool = False,
         with span("j3") as j3:
             del chars
             nphrases = ncuts + 1
-            n_levels = capture_levels(max_len, w, alphabet)
+            n_levels = capture_levels(max_len, w)
             nsuf = (dict_total - 1 - D) - D * w
             total = n + 1
             dict_b, nsuf_b = _bucket(dict_total), _bucket(nsuf)
             total_b = _bucket(total)
-            engines = dict(fanout=fanout_impl(), impl=sort_impl())
             bwt_d, sa_d, checksum_d = _final_core(
                 *state[:-1], nphrases, D, dict_total, nsuf, total, w,
                 dict_b, nsuf_b, total_b, n_levels=n_levels,
-                alphabet=alphabet, **engines,
             )
             del state
             with span("j3.checksum_read"):
@@ -558,9 +517,8 @@ def pfbwt_fused_device(C: np.ndarray, w: int, p: int, want_sa: bool = False,
         info.update({
             "n": n, "n_b": n_b, "nphrases": nphrases, "nph_b": nph_b,
             "D": D, "dict_total": dict_total, "dict_b": dict_b, "nsuf": nsuf,
-            "n_levels": n_levels, "alphabet": alphabet, **engines,
-            "j2_runs": j2_runs, "host_s": host.seconds, "j2_s": j2.seconds,
-            "j3_s": j3.seconds, "checksum": checksum,
+            "n_levels": n_levels, "j2_runs": j2_runs, "host_s": host.seconds,
+            "j2_s": j2.seconds, "j3_s": j3.seconds, "checksum": checksum,
             "rounds": dict(suffix.rounds),
         })
         with span("fetch") as fetch:

@@ -37,7 +37,6 @@ reads count as ``syncs`` and ``d2h_bytes``, each chunk's download as
 ``d2h_bytes`` alone.  ``pfbwt_fused_stream_records`` adds ``stream``.
 """
 
-import os
 from contextlib import ExitStack
 
 import numpy as np
@@ -52,7 +51,7 @@ from . import fused
 from .bwt_dev import _emit_decode, emission_state
 from .bwt_mmap import _ChunkWriter
 from .carry import carry_max
-from .suffix import compact_indices
+from .suffix import capture_levels, compact_indices
 
 _I64_MAX = 2**63 - 1
 _MASK64 = (1 << 64) - 1
@@ -76,8 +75,7 @@ _CHUNK_KEYS = ("first", "gid", "seg_u", "flags", "ls", "bwlast", "ilist",
 def _dict_state_core(Tp, parse_ranks, occs, dict_start, dict_len, last, sai,
                      nphrases: int, D: int, dict_total: int, nsuf_true: int,
                      chunk_target: int, w: int, dict_b: int, nsuf_b: int,
-                     max_chunks: int, n_levels: int = None,
-                     alphabet: str = "byte"):
+                     max_chunks: int, n_levels: int = None):
     """J3a -> (state, table).  ``state`` holds the dict-scale arrays by
     name (those of the JAX package's J3a, ``first`` being its
     ``emis_prefix``, plus ``seg_u`` and ``flags``, the per-suffix ilist
@@ -88,7 +86,6 @@ def _dict_state_core(Tp, parse_ranks, occs, dict_start, dict_len, last, sai,
     dict_flat, ss, bwlast, ilist, bwsai, seg_start = fused._j3_prep_core(
         Tp, parse_ranks, occs, dict_start, dict_len, last, sai,
         nphrases, D, dict_total, w, dict_b, n_levels=n_levels,
-        alphabet=alphabet,
     )
     with span("j3a.state"):
         (
@@ -213,13 +210,10 @@ def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
     uint64 sum of every BWT byte and SA value.
 
     ``j2_stream`` forces the streamed J2 (True) or the monolithic one
-    (False); None reads PFBWT_J2_STREAM as the JAX package does (``1``
-    and ``0`` force it, any other value or none chooses the streamed J2
-    for inputs longer than J2_STREAM_ABOVE, the port's own switch: the
-    JAX package's sits at 288 MiB, past its TPU program's ceiling).
-    ``j2_chunk`` is the streamed J2's chunk length (None: PFBWT_J2_CHUNK,
-    else 64 MiB).  PFBWT_DICT_KEYS picks the dict key packing
-    (fused.dict_alphabet).
+    (False); None chooses the streamed J2 for inputs longer than
+    J2_STREAM_ABOVE, the port's own switch (the JAX package's sits at
+    288 MiB, past its TPU program's ceiling).  ``j2_chunk`` is the
+    streamed J2's chunk length (None: 64 MiB).
     ``info``, when given, receives the sizes, the stage seconds (j2_s,
     j3a_s, chunks_s; each ends in a host read) and, on a card, the
     device's peak allocation so far as each stage ends (peak_j2,
@@ -233,7 +227,6 @@ def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
     with build(info):
         with span("host_prep"):
             codes_or_die(C)
-            alphabet = fused.dict_alphabet(C)
             C_len = int(C.shape[0])
             n = C_len
             n_b = fused._bucket(max(C_len, 1), 1 << 16)
@@ -241,10 +234,9 @@ def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
             chars_p[:C_len] = C
             chars_p[C_len:] = ord("A")
         if j2_stream is None:
-            env = os.environ.get("PFBWT_J2_STREAM", "auto").lower()
-            j2_stream = env == "1" or (env != "0" and C_len > J2_STREAM_ABOVE)
+            j2_stream = C_len > J2_STREAM_ABOVE
         if j2_chunk is None:
-            j2_chunk = int(os.environ.get("PFBWT_J2_CHUNK", str(64 << 20)))
+            j2_chunk = 64 << 20
 
         with task_timer("streamed build: J2 parse", "j2") as j2:
             with span("j2.upload"):
@@ -260,10 +252,10 @@ def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
             del chars
         ncuts, D, dict_total, max_len = meta
         nsuf = (dict_total - 1 - D) - D * w
-        n_levels = fused.capture_levels(max_len, w, alphabet)
+        n_levels = capture_levels(max_len, w)
         info.update(n=n, n_b=n_b, nphrases=ncuts + 1,
                     nph_b=state[1].shape[0], D=D, dict_total=dict_total,
-                    nsuf=nsuf, n_levels=n_levels, alphabet=alphabet,
+                    nsuf=nsuf, n_levels=n_levels,
                     j2_stream=j2_stream, j2_runs=j2_runs, j2_s=j2.seconds,
                     peak_j2=_peak(dev))
 
@@ -272,7 +264,7 @@ def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
             st, table = _dict_state_core(
                 *state[:-1], ncuts + 1, D, dict_total, nsuf, chunk_target, w,
                 fused._bucket(dict_total), fused._bucket(nsuf), max_chunks,
-                n_levels=n_levels, alphabet=alphabet,
+                n_levels=n_levels,
             )
             del state
             st = {k: st[k] for k in _CHUNK_KEYS}

@@ -31,12 +31,11 @@ import torch
 
 from ..constants import EndOfDict
 from ..ops.bwt import bwt_result
-from ..ops.bwt_dev import (_emit_decode, dict_alphabet_of_bytes,
-                           dict_sort_part, emission_state)
-from ..ops.fused import _bucket, capture_levels
+from ..ops.bwt_dev import _emit_decode, dict_sort_part, emission_state
+from ..ops.fused import _bucket
 from ..ops.parse import ParserParams
 from ..ops.parse_bwt import parse_bwt_core
-from ..ops.suffix import compact_indices
+from ..ops.suffix import capture_levels, compact_indices
 from .dict_union import distributed_parse_records
 from .dsort import _I64MAX, _round_up, dsort_blocks
 from .sharded import ParseMesh, gather_to_root
@@ -46,13 +45,13 @@ _KEY_BITS = 63  # the packed emission key rides in a non-negative int64
 
 def _j3a_core(dict_flat, occs, ranks_p, last_p, sai_p, nphrases: int,
               nsuf_true: int, w: int, nsuf_b: int, total_b: int,
-              n_levels: int, alphabet: str):
+              n_levels: int):
     """FM-J3a on this rank's device: returns (firstE, gidE, flagsE, baseE,
     ls_tab, bwlast, ilist, bwsai).  Pads of the compacted tables get a
     first slot past every lane, so no lane selects them."""
     bwlast, ilist, bwsai, _ = parse_bwt_core(ranks_p, last_p, sai_p,
                                              nphrases)
-    ss = dict_sort_part(dict_flat, w, n_levels=n_levels, alphabet=alphabet)
+    ss = dict_sort_part(dict_flat, w, n_levels=n_levels)
     (_, _, _, gid, _, counts, first, flags, ls_tab, seg_u) = emission_state(
         dict_flat, occs, nsuf_true, w, nsuf_b, ss)
     # the emitting suffixes (counts > 0) in lex order: firstE is strictly
@@ -129,8 +128,7 @@ def _fused_mesh_from_parse(res, w: int, mesh: ParseMesh, want_sa: bool,
                          "byte (EndOfWord/EndOfDict)")
     seps = np.flatnonzero(dict_flat <= 1)
     max_len = int(np.diff(np.concatenate(([-1], seps))).max()) - 1
-    alphabet = dict_alphabet_of_bytes(dict_flat)
-    n_levels = capture_levels(max_len, w, alphabet)
+    n_levels = capture_levels(max_len, w)
 
     def put(a, size, fill=0, dtype=np.int64):
         out = np.full(size, fill, dtype=dtype)
@@ -143,7 +141,7 @@ def _fused_mesh_from_parse(res, w: int, mesh: ParseMesh, want_sa: bool,
         put(ranks, nph_b), put(np.asarray(res.last, np.uint8), nph_b,
                                dtype=np.uint8),
         put(np.asarray(res.sai, np.uint64).view(np.int64), nph_b),
-        nphrases, nsuf, w, nsuf_b, total_b, n_levels, alphabet)
+        nphrases, nsuf, w, nsuf_b, total_b, n_levels)
     m_b = ilist.shape[0]
     KB = int(np.ceil(np.log2(m_b + 2)))
     nsuf_bits = int(np.ceil(np.log2(nsuf_b + 2)))

@@ -8,8 +8,10 @@ import numpy as np
 import pytest
 import torch
 
-from pfbwtf_tpu_torch.ops import carry, suffix
+from pfbwtf_tpu_torch.ops import bwt_dev, carry, suffix
 from pfbwtf_tpu_torch.ops.cuda import carry_scan as kernels
+
+from .torch_inputs import repeat_dict
 
 I64_MIN = -(1 << 63)
 I64_MAX = (1 << 63) - 1
@@ -73,8 +75,8 @@ def _groups(seed: int, n_groups: int):
 
 
 def _posrank_before(cks, order, idx):
-    """The default round's positional ranks as suffix._posrank computed
-    them before kernel K5: changed flags, a where, cummax and a scatter."""
+    """A dict doubling round's positional ranks as the port computed them
+    before kernel K5: changed flags, a where, cummax and a scatter."""
     n = cks.shape[0]
     changed = torch.ones(n, dtype=torch.bool)
     changed[1:] = cks[1:] != cks[:-1]
@@ -94,21 +96,26 @@ def test_posrank_plain_equals_the_round_before(seed, n_groups):
     assert torch.equal(rank, want_rank)
     assert torch.equal(counts, want_counts)
     assert int(counts) == n_groups
-    # the default round of the dict doubling is this entry
-    got = suffix._posrank(cks, order, idx)
-    assert torch.equal(got[0], want_rank) and torch.equal(got[1], counts)
 
 
-@pytest.mark.parametrize("seed", [5, 6])
-def test_posrank_unresolved_round_counts_groups_and_open_lanes(seed):
-    cks, order = _groups(seed, 300)
-    idx = torch.arange(cks.shape[0])
-    rank, counts = suffix._posrank(cks, order, idx, unresolved=True)
-    want_rank, want_groups = _posrank_before(cks, order, idx)
-    assert torch.equal(rank, want_rank)
-    _, sizes = torch.unique_consecutive(cks, return_counts=True)
-    assert counts.tolist() == [int(want_groups),
-                               int(sizes[sizes > 1].sum())]
+@pytest.mark.parametrize("w", [4, 10])
+def test_dict_doubling_rounds_are_posrank(monkeypatch, w):
+    """Every round of the dict doubling, the first included, takes its
+    ranks and group count from carry.posrank, and the sort is the one of
+    the rounds as they were before kernel K5."""
+    dfp = torch.from_numpy(repeat_dict(w=w))
+    want = bwt_dev.dict_sort_part(dfp, w)
+    calls = []
+
+    def counted(cks, order):
+        calls.append(1)
+        return _posrank_before(cks, order, torch.arange(cks.shape[0]))
+
+    monkeypatch.setattr(suffix, "posrank", counted)
+    got = bwt_dev.dict_sort_part(dfp, w)
+    assert len(calls) == suffix.rounds["dict_sa"] + 1 >= 3
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
 
 
 def test_posrank_plain_empty():

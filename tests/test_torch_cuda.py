@@ -18,7 +18,7 @@ from pfbwtf_tpu_torch.markers.rle_window import RleWindowArray
 from pfbwtf_tpu_torch.ops.bwt import bwt_result
 from pfbwtf_tpu_torch.ops.bwt_dev import bwt_result_dev
 from pfbwtf_tpu_torch.ops.bwt_mmap import assemble_bwt_stream
-from pfbwtf_tpu_torch.ops import carry, gather
+from pfbwtf_tpu_torch.ops import bwt_dev, carry, gather
 from pfbwtf_tpu_torch.ops.cuda import carry_scan as carry_kernels
 from pfbwtf_tpu_torch.ops.cuda import gather as gather_kernels
 from pfbwtf_tpu_torch.ops.cuda import hash_scan as k1
@@ -469,32 +469,36 @@ def test_host_backend_equals_device_backend_on_card(card, tmp_path,
                     == (tmp_path / f"dev.{ext}").read_bytes()), (name, ext)
 
 
-CARD_ENGINES = [
-    ("PFBWT_SORT_IMPL", "radix"), ("PFBWT_FANOUT", "scatter"),
-    ("PFBWT_FANOUT", "merge"), ("PFBWT_DICT_KEYS", "acgt3"),
-    ("PFBWT_DBL_SUBSET", "4"), ("PFBWT_DBL_SUBSET", "8"),
-    ("PFBWT_DBL_INV", "scatter"), ("PFBWT_J3_SPLIT", "1"),
-]
+def test_stage3_wide_emission_card_equals_default(card, tmp_path,
+                                                 monkeypatch):
+    """The staged build's stage 3 on the card, resumed from its checkpoint
+    files with the emission forced onto the path it takes past 63 key
+    bits (assemble_core(wide=True): the scatter fan-out, whose running
+    max is K5, and the stable two-key (gid, j) sort): the default
+    emission's .bwt/.sa/.ssa/.esa."""
+    fa = _pan_fasta(tmp_path / "in.fa", 40, 1 << 17, 8)
+    for name in ("PFBWT_BACKEND", "PFBWT_ASSEMBLE_BACKEND"):
+        monkeypatch.delenv(name, raising=False)
+    pre = tmp_path / "dev"
+    assert cli_main([fa, "-o", str(pre), "-s", "-r"]) == 0
+    want = {ext: (tmp_path / f"dev.{ext}").read_bytes()
+            for ext in ("bwt", "sa", "ssa", "esa")}
+    core = bwt_dev.assemble_core
+    calls = []
 
+    def wide(*args, **kw):
+        calls.append(1)
+        return core(*args, wide=True, **kw)
 
-@pytest.mark.parametrize("var,value", CARD_ENGINES,
-                         ids=[f"{v}={x}" for v, x in CARD_ENGINES])
-def test_fused_engine_card_equals_default(card, monkeypatch, var, value):
-    """Each opt-in engine of the fused build at 1 MB on the card: the
-    default engine's files and checksum, one K1 launch."""
-    fa = _pan_fasta_records(40, 1 << 17, 8)
-    kw = dict(want_sa=True, want_rssa=True)
-    want, winfo = pfbwt_fused_records(fa, ParserParams(), device="cuda", **kw)
-    monkeypatch.setenv(var, value)
-    before = k1.launches
-    got, info = pfbwt_fused_records(fa, ParserParams(), device="cuda", **kw)
+    monkeypatch.setattr(bwt_dev, "assemble_core", wide)
+    before = carry_kernels.launches["carry"]
+    run_pfbwt(PfbwtConfig(prefix=str(pre), sa=True, rssa=True,
+                          device="cuda"), None)
     torch.cuda.synchronize()
-    assert k1.launches == before + 1
-    for field in ("bwt", "sa", "ssa", "esa"):
-        assert np.array_equal(getattr(got, field), getattr(want, field))
-    # the padded lanes too: the default fill fan-out ignores the sort
-    # engine, and the single-key sort of every fan-out decodes them alike
-    assert info["checksum"] == winfo["checksum"]
+    assert calls == [1]
+    assert carry_kernels.launches["carry"] > before
+    for ext, data in want.items():
+        assert (tmp_path / f"dev.{ext}").read_bytes() == data, ext
 
 
 def _pan_fasta_records(seed, unit_len, copies, nmut=200):

@@ -21,6 +21,8 @@ from pfbwtf_tpu_torch.ops.bwt_dev import assemble_core
 from pfbwtf_tpu_torch.ops.parse import ParserParams, build_stream
 from pfbwtf_tpu_torch.utils.errors import PfbwtError
 
+from . import torch_inputs
+
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 MASK64 = (1 << 64) - 1
 
@@ -43,11 +45,23 @@ def _case(name):
         muts = rng.integers(0, seq.size, size=30)
         seq[muts] = ACGT[rng.integers(0, 4, size=30)]
         return [("r", seq)], 4, 12
+    if name == "repeats":
+        return torch_inputs.records("repeats")
+    if name == "n_runs":
+        # runs of N (hashed and sorted as their own byte) in two records
+        rng = np.random.default_rng(18)
+        a = rng.choice(ACGT, size=3000)
+        b = rng.choice(ACGT, size=2000)
+        for seq, starts in ((a, (100, 1500, 2980)), (b, (0, 700))):
+            for s0 in starts:
+                seq[s0: s0 + int(rng.integers(5, 60))] = ord("N")
+        return [("a", a), ("b", b)], 4, 10
     rng = np.random.default_rng(14)
     return [("s", rng.choice(ACGT, size=30000))], 10, 100
 
 
-CASES = ["random", "multi_record", "repetitive", "default_params"]
+CASES = ["random", "multi_record", "repetitive", "default_params",
+         "repeats", "n_runs"]
 
 
 def _host_reference(records, w, p):
@@ -219,15 +233,18 @@ def test_checksum_matches_jax():
     assert info["stream_s"] >= 0
 
 
+@pytest.mark.parametrize("name", ["random5000", "repeats"])
 @pytest.mark.parametrize("wide", [True, False])
-def test_assemble_wide_emission_sort(wide):
+def test_assemble_wide_emission_sort(wide, name):
     """wide=True takes the scatter fan-out with the two-key (gid, j) sort
     that the JAX path takes past 63 key bits; byte parity with the host
     assembly either way."""
-    rng = np.random.default_rng(23)
-    seq = rng.choice(ACGT, size=5000)
-    w = 4
-    res = parse_records([("s", seq)], JParams(w=w, p=9, get_sai=True))
+    if name == "repeats":
+        records, w, p = _case(name)
+    else:
+        rng = np.random.default_rng(23)
+        records, w, p = [("s", rng.choice(ACGT, size=5000))], 4, 9
+    res = parse_records(records, JParams(w=w, p=p, get_sai=True))
     pb = bwt_of_parse(res.parse_ranks, res.last, res.sai, get_sai=True)
     dict_flat = res.dict_flat()
     want = assemble_bwt(dict_flat, w, res.occs.astype(np.int64), pb.bwlast,

@@ -23,6 +23,7 @@ from pfbwtf_tpu.ops.parse_bwt import bwt_of_parse
 from pfbwtf_tpu_torch.ops import fused as tfused
 from pfbwtf_tpu_torch.ops import fused_stream as tstream
 from pfbwtf_tpu_torch.ops.parse import ParserParams, build_stream
+from pfbwtf_tpu_torch.ops.suffix import capture_levels
 from pfbwtf_tpu_torch.utils.errors import PfbwtError
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
@@ -117,7 +118,7 @@ def _j2_state(records, w, p):
     sizes = dict(n=C_len, nphrases=ncuts + 1, D=D, dict_total=dict_total,
                  nsuf=nsuf, dict_b=tfused._bucket(dict_total),
                  nsuf_b=tfused._bucket(nsuf),
-                 n_levels=tfused.capture_levels(max_len, w))
+                 n_levels=capture_levels(max_len, w))
     return state, sizes
 
 

@@ -12,6 +12,8 @@ from pfbwtf_tpu.ops import bwt_jax, suffix as jsuf
 from pfbwtf_tpu.ops.parse import ParserParams, parse_records
 from pfbwtf_tpu_torch.ops import bwt_dev, suffix as tsuf
 
+from .torch_inputs import repeat_dict
+
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 
 
@@ -94,7 +96,7 @@ def test_compact_indices_matches_jax(size):
 @pytest.mark.parametrize("w", [1, 3, 4, 10])
 def test_packed_dict_keys_match_jax(w):
     _, dfp, _ = _padded_dict("random")
-    got, k0, fp = tsuf.packed_dict_keys(torch.from_numpy(dfp), w)
+    got, k0 = tsuf.packed_dict_keys(torch.from_numpy(dfp), w)
     want, jk0, _ = jsuf.packed_dict_keys(jnp.asarray(dfp), w)
     assert k0 == jk0
     assert np.array_equal(got.numpy(), np.asarray(want))
@@ -105,12 +107,49 @@ def test_doubling_with_captures_matches_jax(n_levels):
     """Including a table too short for the longest suffixes, where the
     uncaptured queries keep their sentinels."""
     _, dfp, w = _padded_dict("repetitive")
-    keys, k0, _ = tsuf.packed_dict_keys(torch.from_numpy(dfp), w)
+    keys, k0 = tsuf.packed_dict_keys(torch.from_numpy(dfp), w)
     suf_len = bwt_dev.dict_sort_part(torch.from_numpy(dfp), w)[3]
     got = tsuf.doubling_with_captures(keys, suf_len, k0, n_levels=n_levels)
     want = jsuf.doubling_with_captures(
         jnp.asarray(keys.numpy()), None, jnp.asarray(suf_len.numpy()),
         k0=k0, n_levels=n_levels,
     )
+    for g, x in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(x))
+
+
+def _captures(dfp, w, n_levels=None):
+    """The port's and the JAX package's doubling_with_captures outputs on
+    the same keys and capture lengths."""
+    keys, k0 = tsuf.packed_dict_keys(torch.from_numpy(dfp), w)
+    suf_len = bwt_dev.dict_sort_part(torch.from_numpy(dfp), w)[3]
+    got = tsuf.doubling_with_captures(keys, suf_len, k0, n_levels=n_levels)
+    want = jsuf.doubling_with_captures(
+        jnp.asarray(keys.numpy()), None, jnp.asarray(suf_len.numpy()),
+        k0=k0, n_levels=n_levels,
+    )
+    return got, want
+
+
+@pytest.mark.parametrize("n_levels", [None, 3])
+@pytest.mark.parametrize("w", [4, 10])
+def test_doubling_with_captures_on_repeats_matches_jax(w, n_levels):
+    """Words with long shared prefixes: several full-width rounds, and
+    with n_levels=3 a table too short for the longest suffixes."""
+    got, want = _captures(repeat_dict(w=w), w, n_levels)
+    for g, x in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(x))
+    assert tsuf.rounds["dict_sa"] >= 2
+
+
+@pytest.mark.parametrize("w", [4, 10, 15])
+def test_dict_sort_part_on_repeats_matches_jax(w):
+    dfp = repeat_dict(w=w)
+    n_levels = tsuf.capture_levels(90, w)
+    want = jax.jit(lambda d: bwt_jax.dict_sort_part(d, w,
+                                                    n_levels=n_levels))(
+        jnp.asarray(dfp))
+    got = bwt_dev.dict_sort_part(torch.from_numpy(dfp), w,
+                                 n_levels=n_levels)
     for g, x in zip(got, want):
         assert np.array_equal(g.numpy(), np.asarray(x))
