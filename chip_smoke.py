@@ -760,7 +760,7 @@ def phase_main(records, C):
     timed = sum(info[k] for k in ("stream_s", "host_s", "j2_s", "j3_s",
                                   "fetch_s"))
     print(f"64 MB end-to-end seconds: {e2e:.4f} (records to stream "
-          f"{info['stream_s']:.4f}, host input check {info['host_s']:.4f}, "
+          f"{info['stream_s']:.4f}, host sizing {info['host_s']:.4f}, "
           f"download + sampling {info['fetch_s']:.4f}, untimed remainder "
           f"{e2e - timed:.4f})")
     print(f"64 MB peak device memory: {peak} bytes ({peak / 2**30:.2f} GiB)")

@@ -12,9 +12,12 @@ between stages (the fused pipeline of pfbwtf_tpu/ops/fused.py).
                parse-BWT, emission fan-out and the final sort -> bwt chars
                + SA values.
 
-The host reads four scalars after J2 (they size J3's buckets) and the
-checksum after J3; the runs are sampled on the device too, and the
-outputs come back through one pinned host block (bwt_dev.bwt_result_dev).
+The char stream is built on the device too: the records' raw bytes are
+copied up as they are, and padded, uppercased and checked there
+(``stream_dev``).  The host reads four scalars after J2 (they size
+J3's buckets, and the check's result rides with them) and the checksum
+after J3; the runs are sampled on the device too, and the outputs come
+back through one pinned host block (bwt_dev.bwt_result_dev).
 Covers run_parser + run_pfbwt of the reference (src/pfbwt-f.cpp:209-349).
 Buckets and intermediates have the JAX package's shapes, so the two can
 be compared stage by stage; uint64 hash words and SA values ride in int64
@@ -33,8 +36,8 @@ import torch
 from ..constants import Dollar, EndOfDict, EndOfWord
 from ..utils.device import resolve_device
 from ..utils.errors import die
-from ..utils.tables import codes_or_die, ntoa_codes
-from ..utils.timer import build, host_read, span
+from ..utils.tables import die_invalid, first_invalid, ntoa_codes, upper_dev
+from ..utils.timer import build, count, host_read, span
 from . import suffix
 from .bwt_dev import (_exclusive_cumsum, _set_drop, assemble_core,
                       bwt_result_dev, dict_sort_part)
@@ -297,19 +300,30 @@ def _parse_core_stream(chars_p, C_len: int, w: int, p: int, nph_b: int,
     return (*state[:-1], torch.cat((state[-1], m_over.reshape(1))))
 
 
-def _rerun_until_held(j2, nph_b: int, m_max: int = 0):
+def _rerun_until_held(j2, nph_b: int, m_max: int = 0, check=None):
     """Run ``j2(nph_b, m_max)`` at the speculative buckets and again at
     the exact ones until its state holds: ncuts + 1 <= nph_b and, for the
     streamed J2, meta[4] <= m_max.  Both are checked on every run, since
     a run whose phrase bucket overflowed counted meta[4] over truncated
-    cuts.  Returns (state, [ncuts, D, dict_total, max_len], runs)."""
+    cuts.  ``check``, the input's utils/tables.first_invalid pair, is
+    read with the first run's sizes, and an invalid byte dies before any
+    size is judged.  Returns (state, [ncuts, D, dict_total, max_len],
+    runs)."""
     runs = 0
     while True:
         with span("j2.run"):
             state = j2(nph_b, m_max)
         runs += 1
         with span("j2.sizes_read"):
-            meta = host_read(state[-1]).tolist()
+            meta = state[-1]
+            if check is not None:
+                meta = torch.cat((meta, check))
+            meta = host_read(meta).tolist()
+        if check is not None:
+            meta, (bad, byte) = meta[:-2], meta[-2:]
+            if bad:
+                die_invalid(byte)
+            check = None
         ncuts = meta[0]
         m_over = meta[4] if len(meta) > 4 else 0
         if ncuts == 0:
@@ -321,10 +335,12 @@ def _rerun_until_held(j2, nph_b: int, m_max: int = 0):
         m_max = max(m_max, _bucket(m_over))
 
 
-def run_parse(chars, C_len: int, w: int, p: int, nph_b: int):
-    """The monolithic J2 until its phrase bucket holds."""
+def run_parse(chars, C_len: int, w: int, p: int, nph_b: int, check=None):
+    """The monolithic J2 until its phrase bucket holds; ``check`` as
+    _rerun_until_held's."""
     return _rerun_until_held(
-        lambda nb, _: _parse_core(chars, C_len, w, p, nb), nph_b)
+        lambda nb, _: _parse_core(chars, C_len, w, p, nb), nph_b,
+        check=check)
 
 
 def run_parse_stream(chars, C_len: int, w: int, p: int, nph_b: int,
@@ -466,6 +482,41 @@ def parse_state_to_numpy(state):
 # --------------------------------------------------------------------------
 
 
+def _stage(seqs, w: int, n_b: int, dev):
+    """The padded char stream on ``dev``: the bytes of each of ``seqs``
+    followed by ``w`` 'A's (pfparser.hpp:333-337), then 'A' up to ``n_b``
+    bytes.  Each array is copied from its own host memory into its slice
+    without blocking: CUDA stages pageable memory before the copy
+    returns, overlapping the host's read with the transfer.  The pads are
+    filled in one launch from their offsets and the tail in another, so
+    no fill grows with the number of records."""
+    chars = torch.empty(n_b, dtype=torch.uint8, device=dev)
+    ends, off = [], 0
+    for seq in seqs:
+        n = seq.shape[0]
+        # a read-only array is copied once: torch takes writable memory
+        src = torch.from_numpy(np.require(seq, requirements="W"))
+        chars[off: off + n].copy_(src, non_blocking=True)
+        ends.append(off + n)
+        off += n + w
+    pads = (np.asarray(ends, dtype=np.int64)[:, None] + np.arange(w)).ravel()
+    chars.index_fill_(0, torch.from_numpy(pads).to(dev, non_blocking=True),
+                      ord("A"))
+    chars[off:].fill_(ord("A"))
+    return chars
+
+
+def stream_dev(seqs, params, n_b: int, dev):
+    """build_stream on the device: [chars, check], ``chars`` the char
+    stream of the records' bytes ``seqs`` (uint8 arrays), uppercased,
+    with ``params.non_acgt_to_a`` replaced, and padded to ``n_b`` bytes;
+    ``check`` its utils/tables.first_invalid pair, unread."""
+    chars = _stage(seqs, params.w, n_b, dev)
+    upper_dev(chars, params.non_acgt_to_a)
+    count("stream_dev")
+    return [chars, first_invalid(chars)]
+
+
 def pfbwt_fused_device(C: np.ndarray, w: int, p: int, want_sa: bool = False,
                        want_rssa: bool = False, sa_dtype=np.uint64,
                        device="cuda"):
@@ -473,72 +524,90 @@ def pfbwt_fused_device(C: np.ndarray, w: int, p: int, want_sa: bool = False,
 
     Returns ``(BWTResult, info)``.  ``info`` holds the sizes, the doubling
     round counts, the checksum and the seconds of its stage spans
-    (utils/timer): host_s (``host_prep``: input check and padding), j2_s
-    (``j2``: upload + J2, ending in the host read of its sizes), j3_s
-    (``j3``: J3, ending in the checksum read) and fetch_s (``fetch``:
-    sample_s, the run-length sampling on the device, + download_s, the
-    outputs' copy to pinned host memory: bwt_dev.bwt_result_dev); as the
-    outermost entry point also spans, counts and build_id."""
+    (utils/timer): host_s (``host_prep``: sizing, and C's upload padded to
+    its bucket with its check launched), j2_s (``j2``: J2, ending in the
+    host read of its sizes and the check), j3_s (``j3``: J3, ending in the
+    checksum read) and fetch_s (``fetch``: sample_s, the run-length
+    sampling on the device, + download_s, the outputs' copy to pinned host
+    memory: bwt_dev.bwt_result_dev); as the outermost entry point also
+    spans, counts and build_id."""
     info = {}
     with build(info):
         dev = resolve_device(device)
         with span("host_prep") as host:
-            codes_or_die(C)
             C_len = int(C.shape[0])
-            # text length incl. per-record pads (pfparser.hpp:529-532)
-            n = C_len
-            n_b = _bucket(max(C_len, 1), 1 << 16)
-            chars_p = np.empty(n_b, dtype=np.uint8)
-            chars_p[:C_len] = C
-            chars_p[C_len:] = ord("A")
-
-        with span("j2") as j2:
-            with span("j2.upload"):
-                chars = torch.from_numpy(chars_p).to(dev)
-            state, (ncuts, D, dict_total, max_len), j2_runs = run_parse(
-                chars, C_len, w, p, _bucket(speculative_nphrases(C_len, p)))
-            nph_b = state[1].shape[0]
-
-        with span("j3") as j3:
+            chars = _stage([C], 0, _bucket(max(C_len, 1), 1 << 16), dev)
+            staged = [chars, first_invalid(chars)]
             del chars
-            nphrases = ncuts + 1
-            n_levels = capture_levels(max_len, w)
-            nsuf = (dict_total - 1 - D) - D * w
-            total = n + 1
-            dict_b, nsuf_b = _bucket(dict_total), _bucket(nsuf)
-            total_b = _bucket(total)
-            bwt_d, sa_d, checksum_d = _final_core(
-                *state[:-1], nphrases, D, dict_total, nsuf, total, w,
-                dict_b, nsuf_b, total_b, n_levels=n_levels,
-            )
-            del state
-            with span("j3.checksum_read"):
-                checksum = int(host_read(checksum_d)) & _MASK64
-        info.update({
-            "n": n, "n_b": n_b, "nphrases": nphrases, "nph_b": nph_b,
-            "D": D, "dict_total": dict_total, "dict_b": dict_b, "nsuf": nsuf,
-            "n_levels": n_levels, "j2_runs": j2_runs, "host_s": host.seconds,
-            "j2_s": j2.seconds, "j3_s": j3.seconds, "checksum": checksum,
-            "rounds": dict(suffix.rounds),
-        })
-        with span("fetch") as fetch:
-            res = bwt_result_dev(bwt_d, sa_d, total, n, want_sa, want_rssa,
-                                 sa_dtype, info=info)
-        info.update(r=res.nruns, fetch_s=fetch.seconds)
+        info["host_s"] = host.seconds
+        res = _fused_from_chars(staged, C_len, w, p, want_sa, want_rssa,
+                                sa_dtype, info)
     return res, info
 
 
-def pfbwt_fused_records(records, params, device="cuda", **kw):
-    """Fused run over FASTA records (build_stream + pfbwt_fused_device);
-    ``info["stream_s"]`` is the wall time of build_stream (span
-    ``stream``)."""
-    from .parse import build_stream
+def _fused_from_chars(staged, C_len: int, w: int, p: int, want_sa: bool,
+                      want_rssa: bool, sa_dtype, info: dict):
+    """J2, J3 and the fetch from the device chars on, inside an open
+    build; ``staged`` is [chars, check] and is emptied, so that the chars
+    are freed before J3.  ``info`` receives the keys of
+    pfbwt_fused_device but host_s."""
+    chars, check = staged
+    staged.clear()
+    n_b = chars.shape[0]
+    # text length incl. per-record pads (pfparser.hpp:529-532)
+    n = C_len
+    with span("j2") as j2:
+        state, (ncuts, D, dict_total, max_len), j2_runs = run_parse(
+            chars, C_len, w, p, _bucket(speculative_nphrases(C_len, p)),
+            check)
+        nph_b = state[1].shape[0]
 
+    with span("j3") as j3:
+        del chars, check
+        nphrases = ncuts + 1
+        n_levels = capture_levels(max_len, w)
+        nsuf = (dict_total - 1 - D) - D * w
+        total = n + 1
+        dict_b, nsuf_b = _bucket(dict_total), _bucket(nsuf)
+        total_b = _bucket(total)
+        bwt_d, sa_d, checksum_d = _final_core(
+            *state[:-1], nphrases, D, dict_total, nsuf, total, w,
+            dict_b, nsuf_b, total_b, n_levels=n_levels,
+        )
+        del state
+        with span("j3.checksum_read"):
+            checksum = int(host_read(checksum_d)) & _MASK64
+    info.update({
+        "n": n, "n_b": n_b, "nphrases": nphrases, "nph_b": nph_b,
+        "D": D, "dict_total": dict_total, "dict_b": dict_b, "nsuf": nsuf,
+        "n_levels": n_levels, "j2_runs": j2_runs, "j2_s": j2.seconds,
+        "j3_s": j3.seconds, "checksum": checksum,
+        "rounds": dict(suffix.rounds),
+    })
+    with span("fetch") as fetch:
+        res = bwt_result_dev(bwt_d, sa_d, total, n, want_sa, want_rssa,
+                             sa_dtype, info=info)
+    info.update(r=res.nruns, fetch_s=fetch.seconds)
+    return res
+
+
+def pfbwt_fused_records(records, params, device="cuda", want_sa=False,
+                        want_rssa=False, sa_dtype=np.uint64):
+    """Fused run over FASTA records: the char stream built on the device
+    (stream_dev), then the build of pfbwt_fused_device from the device
+    chars on.  ``info`` as pfbwt_fused_device's, host_s (``host_prep``)
+    being the sizing alone, and stream_s (``stream``: the bytes' copy to
+    the device and the launches that normalize and check them)."""
     info = {}
     with build(info):
+        dev = resolve_device(device)
+        with span("host_prep") as host:
+            seqs = [np.asarray(seq, dtype=np.uint8) for _, seq in records]
+            C_len = sum(seq.shape[0] for seq in seqs) + params.w * len(seqs)
+            n_b = _bucket(max(C_len, 1), 1 << 16)
         with span("stream") as stream:
-            C, _, _ = build_stream(records, params)
-        res, fused_info = pfbwt_fused_device(C, params.w, params.p,
-                                             device=device, **kw)
-    info.update(fused_info, stream_s=stream.seconds)
+            staged = stream_dev(seqs, params, n_b, dev)
+        info.update(host_s=host.seconds, stream_s=stream.seconds)
+        res = _fused_from_chars(staged, C_len, params.w, params.p, want_sa,
+                                want_rssa, sa_dtype, info)
     return res, info

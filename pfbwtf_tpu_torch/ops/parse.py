@@ -3,7 +3,8 @@ bounds, and the dictionary dedup + ranking of the staged build.
 
 1. C = concat(upper(record) [+ non-ACGT->A] + 'A'*w): every FASTA record
    is padded with w 'A's (pfparser.hpp:333-337).  The device parse
-   (ops/fused.py, engine.parse_stream) works on C.
+   (ops/fused.py, engine.parse_stream) works on C; the fused build over
+   records makes the same bytes on the device (ops/fused.stream_dev).
 2. T' = Dollar + C + Dollar*w (pfparser.hpp:316-318, 485-488).  Phrase j
    spans T'[s_j..e_j] with e_j = cut_k + 1 in T' coordinates and
    s_{j+1} = e_j - w + 1 (phrases overlap by w chars).

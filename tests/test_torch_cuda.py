@@ -86,6 +86,51 @@ def test_fused_card_equals_cpu(card):
         assert np.array_equal(getattr(got, field), getattr(want, field))
 
 
+@pytest.mark.parametrize("bad", [False, True])
+def test_fused_stream_dev_card_equals_cpu(card, tmp_path, bad):
+    """The char stream built on the card from a FASTA's raw bytes, with
+    runs of lowercase and of N (and invalid bytes: a lowercase one in the
+    second record, another later in it and a third in the last record):
+    the same outputs on the card as on the CPU, or the same message,
+    naming the first of them."""
+    from pfbwtf_tpu_torch.io.fasta import read_fasta_bytes
+    from pfbwtf_tpu_torch.utils.errors import PfbwtError
+
+    rng = np.random.default_rng(8)
+    unit = rng.choice(ACGT, size=30000)
+    fa = tmp_path / "mixed.fa"
+    with open(fa, "wb") as f:
+        for i in range(3):
+            seq = unit.copy()
+            seq[rng.integers(0, seq.size, 40)] = rng.choice(ACGT, 40)
+            for s0 in rng.integers(0, seq.size - 500, 6):
+                seq[s0: s0 + 400] |= 32  # lowercase
+            for s0 in rng.integers(0, seq.size - 100, 4):
+                seq[s0: s0 + 80] = ord("N" if s0 % 2 else "n")
+            if bad and i == 1:
+                seq[12345] = ord("j")
+                seq[20000] = ord("q")
+            if bad and i == 2:
+                seq[100] = ord("X")
+            f.write(b">h%d\n" % i + seq.tobytes() + b"\n")
+    records = read_fasta_bytes(str(fa))
+    kw = dict(want_sa=True, want_rssa=True)
+    outs = []
+    for device in ("cuda", "cpu"):
+        try:
+            outs.append(pfbwt_fused_records(records, ParserParams(),
+                                            device=device, **kw)[0])
+        except PfbwtError as err:
+            outs.append(str(err))
+    got, want = outs
+    if bad:
+        assert got == want == \
+            "invalid character 74/J in input (use --non-acgt-to-a)"
+        return
+    for field in ("bwt", "sa", "ssa", "esa"):
+        assert np.array_equal(getattr(got, field), getattr(want, field))
+
+
 def test_fused_stream_card_equals_cpu(card):
     """The streamed build with the streamed J2 and many emission chunks:
     the same files on the card as on the CPU, and K1 launched."""

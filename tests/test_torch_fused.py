@@ -56,16 +56,32 @@ def _case(name):
             for s0 in starts:
                 seq[s0: s0 + int(rng.integers(5, 60))] = ord("N")
         return [("a", a), ("b", b)], 4, 10
+    if name == "mixed_to_a":
+        # every byte class of the tables in a tenth of the sites of two
+        # repetitive records: lowercase, N/n, '-', other letters, digits,
+        # punctuation, bytes past ASCII; run with --non-acgt-to-a
+        rng = np.random.default_rng(19)
+        unit = rng.choice(ACGT, size=600)
+        recs = []
+        for r in ("a", "b"):
+            seq = np.tile(unit, 5)
+            at = rng.integers(0, seq.size, size=seq.size // 10)
+            seq[at] = rng.choice(torch_inputs.MIXED, size=at.size)
+            recs.append((r, seq))
+        return recs, 4, 10
     rng = np.random.default_rng(14)
     return [("s", rng.choice(ACGT, size=30000))], 10, 100
 
 
 CASES = ["random", "multi_record", "repetitive", "default_params",
          "repeats", "n_runs"]
+# cases built with --non-acgt-to-a; their bytes die without it
+TO_A = ["mixed_to_a"]
 
 
-def _host_reference(records, w, p):
-    res = parse_records(records, JParams(w=w, p=p, get_sai=True))
+def _host_reference(records, w, p, to_a=False):
+    res = parse_records(records, JParams(w=w, p=p, get_sai=True,
+                                         non_acgt_to_a=to_a))
     pb = bwt_of_parse(res.parse_ranks, res.last, res.sai, get_sai=True)
     return assemble_bwt(
         res.dict_flat(), w, res.occs.astype(np.int64), pb.bwlast,
@@ -166,18 +182,20 @@ def test_port_j3_on_jax_j2_matches_jax_j3(name):
     assert int(checksum) & MASK64 == int(want[2])
 
 
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", CASES + TO_A)
 def test_whole_port_matches_jax_and_host(name):
     records, w, p = _case(name)
+    to_a = name in TO_A
     got, info = tfused.pfbwt_fused_records(
-        records, ParserParams(w=w, p=p), device="cpu", want_sa=True,
-        want_rssa=True,
+        records, ParserParams(w=w, p=p, non_acgt_to_a=to_a), device="cpu",
+        want_sa=True, want_rssa=True,
     )
     want_jax, _ = jfused.pfbwt_fused_records(
-        records, JParams(w=w, p=p), want_sa=True, want_rssa=True
+        records, JParams(w=w, p=p, non_acgt_to_a=to_a), want_sa=True,
+        want_rssa=True
     )
     _assert_same(got, want_jax)
-    _assert_same(got, _host_reference(records, w, p))
+    _assert_same(got, _host_reference(records, w, p, to_a))
     assert info["r"] == got.nruns and info["j2_runs"] == 1
 
 

@@ -9,6 +9,11 @@ from pfbwtf_tpu_torch.ops.parse import ParserParams
 from pfbwtf_tpu_torch.ops.parse_bwt import bwt_of_parse
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
+# every byte class the tables tell apart: upper and lower nucleotides,
+# N/n and '-' (hashed as A and T), other letters of either case, digits,
+# punctuation, and bytes past ASCII that toupper leaves alone
+MIXED = np.frombuffer(b"ACGTacgtNn-BbxZz09*@[`{\x00\x7f\x80\xc1\xe1\xff",
+                      np.uint8)
 
 
 def records(name):
