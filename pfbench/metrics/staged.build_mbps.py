@@ -1,0 +1,8 @@
+"""The staged build's rate in the traced run: input bases of every build
+of the window (10^6) over the window's seconds, as ``build_mbps``."""
+
+
+def read(ctx):
+    if not ctx["builds"] or not ctx.get("window_s"):
+        return None
+    return ctx["bases"] * len(ctx["builds"]) / ctx["window_s"] / 1e6

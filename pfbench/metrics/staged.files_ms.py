@@ -1,0 +1,15 @@
+"""The staged build's files a build: the checkpoint writes (spans
+``staged.save_parse``: .dict .occ .parse .n; ``staged.save_parse_bwt``:
+.bwlast .ilist .bwsai), stage 3's read back (``staged.load``), the
+outputs' writes (``staged.write``: .bwt .sa .ssa .esa) and the flush of
+the eleven files to the disk (the harness's span ``fsync``)."""
+
+from pfbench.build_spans import with_spans
+from pfbench.metrics import mean_ms
+
+SPANS = ("staged.save_parse", "staged.save_parse_bwt", "staged.load",
+         "staged.write")
+
+
+def read(ctx):
+    return mean_ms(with_spans(ctx, *SPANS), *SPANS, spans=("fsync",))

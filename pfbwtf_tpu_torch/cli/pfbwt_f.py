@@ -96,8 +96,9 @@ def build_argparser():
 def main(argv=None, device="cuda", info: dict = None):
     """The CLI; ``info``, where given, receives the staged build's stage
     seconds (those of pipeline.run_parser, parallel/driver.pod_parse, the
-    chunked parse or the mesh parse, then of run_pfbwt), or the fused
-    mesh build's, and with --mesh ``mesh_stats`` (ParseMesh.stats)."""
+    chunked parse or the mesh parse, then of run_pfbwt) with its build's
+    spans, counts and build_id (utils/timer.build), or the fused mesh
+    build's, and with --mesh ``mesh_stats`` (ParseMesh.stats)."""
     args = build_argparser().parse_args(argv)
     print("==== Command line:", " ".join(sys.argv), file=sys.stderr)
     tune_malloc()  # numpy temporaries reuse the heap (malloc_tuning.py)
@@ -135,10 +136,19 @@ def main(argv=None, device="cuda", info: dict = None):
 
 def _run_staged(args, output: str, dtype, device, info=None,
                 mesh=None) -> int:
-    """The staged build (pipeline.py): stages 1 and 2 write the
-    checkpoint files (the mesh parse with a ``mesh``, else the pod parse
-    with --shards > 1, else the chunked or whole-array parse), stage 3
-    resumes from them (its sorts over the mesh with one)."""
+    """The staged build (pipeline.py), one build (utils/timer.build) that
+    run_parser and run_pfbwt join: stages 1 and 2 write the checkpoint
+    files (the mesh parse with a ``mesh``, else the pod parse with
+    --shards > 1, else the chunked or whole-array parse), stage 3 resumes
+    from them (its sorts over the mesh with one)."""
+    from ..utils.timer import build
+
+    info = {} if info is None else info
+    with build(info):
+        return _staged_stages(args, output, dtype, device, info, mesh)
+
+
+def _staged_stages(args, output: str, dtype, device, info, mesh) -> int:
     from ..pipeline import (PfbwtConfig, run_parser, run_parser_chunked,
                             run_pfbwt)
 
@@ -185,7 +195,7 @@ def _mesh_parse(fasta: str, output: str, params, dtype, mesh, info) -> int:
     from ..io.fasta import read_fasta_bytes
     from ..parallel.dict_union import distributed_parse_records
     from ..parallel.pfbwt_mesh import mesh_parse_bwt
-    from ..pipeline import save_parser
+    from ..pipeline import save_parser, write_parse_bwt
     from ..utils.limits import check_phrase_count, check_text_width
 
     info = {} if info is None else info
@@ -201,10 +211,7 @@ def _mesh_parse(fasta: str, output: str, params, dtype, mesh, info) -> int:
                         get_sai=params.get_sai, info=info)
     t2 = time.perf_counter()
     if mesh.rank == 0:
-        formats.write_u8(output + ".bwlast", pb.bwlast)
-        formats.write_uint(output + ".ilist", pb.ilist, dtype)
-        if params.get_sai:
-            formats.write_uint(output + ".bwsai", pb.bwsai, dtype)
+        write_parse_bwt(pb, output, dtype, params.get_sai)
     mesh.barrier()
     info["write_s"] = t1 - t0 + time.perf_counter() - t2
     return res.n

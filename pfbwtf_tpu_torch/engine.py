@@ -8,7 +8,10 @@ pfbwtf_tpu/engine.py).
 
 Every stage takes ``device=`` (default ``"cuda"``, which raises without a
 card; ``"cpu"`` runs the plain PyTorch versions).  Stage seconds go to
-``info`` where the caller passes one.
+``info`` where the caller passes one, each the seconds of its span
+(utils/timer): ``staged.read``, ``staged.stream``, ``staged.scan`` and
+``staged.dedup``, kept in the open build (pipeline.run_parser's).  The
+cut positions' download is a counted host read.
 
 Stages 2 and 3 also have a host path (numpy and the native SA-IS, as in
 pfbwtf_tpu), chosen per call, in this order, by the ``backend`` argument,
@@ -22,7 +25,6 @@ of a CUDA tensor is always kernel K1, whatever the variables say.
 """
 
 import os
-import time
 from typing import Optional
 
 import numpy as np
@@ -36,6 +38,16 @@ from .ops.hash import cut_mask
 from .ops.parse import ParseResult, ParserParams
 from .utils.device import resolve_device
 from .utils.tables import codes_or_die
+from .utils.timer import host_read, span
+
+
+def _scan(codes: np.ndarray, params: ParserParams, device):
+    """Cut scan of the 2-bit codes of C on ``device``, the cut positions
+    read back, then the phrase bounds on the host."""
+    dev = resolve_device(device)
+    cut = cut_mask(torch.from_numpy(codes).to(dev), params.w, params.p)
+    cuts = host_read(torch.nonzero(cut).flatten()).numpy()
+    return parse_ops.phrase_bounds_from_cuts(codes.shape[0], cuts, params.w)
 
 
 def parse_stream(C: np.ndarray, params: ParserParams, device="cuda"):
@@ -43,45 +55,46 @@ def parse_stream(C: np.ndarray, params: ParserParams, device="cuda"):
     The cut at position i depends on codes <= i only, so the scan runs on
     C at its own length (the JAX package pads it to a bucket and strips
     the pad's cuts)."""
-    dev = resolve_device(device)
-    codes = codes_or_die(C)
-    cut = cut_mask(torch.from_numpy(codes).to(dev), params.w, params.p)
-    cuts = torch.nonzero(cut).flatten().cpu().numpy()
-    return parse_ops.phrase_bounds_from_cuts(C.shape[0], cuts, params.w)
+    return _scan(codes_or_die(C), params, device)
 
 
 def parse_records(records, params: ParserParams, device="cuda",
                   info: dict = None) -> ParseResult:
     """FASTA records -> ParseResult: stream, cut scan and phrase bounds,
-    then the dedup on ``device``.  ``info`` receives stream_s, scan_s and
-    dedup_s (each ends in a host read) and dedup_rank_device's keys."""
+    then the dedup on ``device``.  ``info`` receives stream_s (span
+    ``staged.stream``: build_stream and the code check), scan_s
+    (``staged.scan``: upload, cut scan, the cut positions' read, phrase
+    bounds) and dedup_s (``staged.dedup``, ending in the ranks' read) and
+    dedup_rank_device's keys."""
     info = {} if info is None else info
-    t0 = time.perf_counter()
-    C, doc_names, doc_starts = parse_ops.build_stream(records, params)
-    t1 = time.perf_counter()
-    starts, ends = parse_stream(C, params, device)
-    t2 = time.perf_counter()
-    res = parse_ops.finalize_parse(
-        C, starts, ends, params,
-        doc_names=doc_names if params.store_docs else [],
-        doc_starts=doc_starts if params.store_docs else [],
-        nseqs=len(records), device=device, info=info,
-    )
-    info.update(stream_s=t1 - t0, scan_s=t2 - t1,
-                dedup_s=time.perf_counter() - t2)
+    with span("staged.stream") as stream:
+        C, doc_names, doc_starts = parse_ops.build_stream(records, params)
+        codes = codes_or_die(C)
+    with span("staged.scan") as scan:
+        starts, ends = _scan(codes, params, device)
+        del codes
+    with span("staged.dedup") as dedup:
+        res = parse_ops.finalize_parse(
+            C, starts, ends, params,
+            doc_names=doc_names if params.store_docs else [],
+            doc_starts=doc_starts if params.store_docs else [],
+            nseqs=len(records), device=device, info=info,
+        )
+    info.update(stream_s=stream.seconds, scan_s=scan.seconds,
+                dedup_s=dedup.seconds)
     return res
 
 
 def parse_fasta(fname: str, params: ParserParams, device="cuda",
                 info: dict = None) -> ParseResult:
     """parse_records of the FASTA file's records; ``info`` also receives
-    read_s, the seconds of the file read."""
+    read_s, the seconds of the file read (span ``staged.read``)."""
     from .io.fasta import read_fasta_bytes
 
     info = {} if info is None else info
-    t0 = time.perf_counter()
-    records = read_fasta_bytes(fname)
-    info["read_s"] = time.perf_counter() - t0
+    with span("staged.read") as read:
+        records = read_fasta_bytes(fname)
+    info["read_s"] = read.seconds
     return parse_records(records, params, device, info)
 
 

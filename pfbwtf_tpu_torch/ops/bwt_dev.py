@@ -219,7 +219,8 @@ def assemble_bwt_dev(dict_flat: np.ndarray, w: int, occs: np.ndarray,
     cache: EndOfDict separators after the dict, zero-count words,
     unreferenced ilist slots, invalid emission lanes.  None of them
     reaches the first n + 1 outputs, so the arrays go in at their own
-    lengths and nsuf_b, total_b are the true sizes."""
+    lengths and nsuf_b, total_b are the true sizes.  The tail,
+    bwt_result_dev, is span ``fetch``, as in the fused build."""
     dev = resolve_device(device)
     dict_flat = np.asarray(dict_flat, dtype=np.uint8)
     occs = np.asarray(occs, dtype=np.int64)
@@ -248,8 +249,9 @@ def assemble_bwt_dev(dict_flat: np.ndarray, w: int, occs: np.ndarray,
         put(np.asarray(bwsai, dtype=np.uint64).view(np.int64), np.int64),
         nsuf, total, w, nsuf, total, n_levels=capture_levels(max_len, w),
     )
-    return bwt_result_dev(bwtc, sa_vals, total, n, want_sa, want_rssa,
-                          sa_dtype)
+    with span("fetch"):
+        return bwt_result_dev(bwtc, sa_vals, total, n, want_sa, want_rssa,
+                              sa_dtype)
 
 
 def bwt_result_dev(bwt_d: torch.Tensor, sa_d: torch.Tensor, total: int,

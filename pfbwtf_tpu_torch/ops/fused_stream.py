@@ -42,7 +42,7 @@ from contextlib import ExitStack
 import numpy as np
 import torch
 
-from ..utils.device import resolve_device
+from ..utils.device import peak_allocated, resolve_device
 from ..utils.errors import die
 from ..utils.limits import check_text_width
 from ..utils.tables import codes_or_die
@@ -188,11 +188,6 @@ def _chunk_core(first, gid, seg_u, flags, ls, bwlast, ilist, bwsai,
     return bwtc, sa_vals, checksum, bad
 
 
-def _peak(dev):
-    """torch.cuda.max_memory_allocated on a card, None on the CPU."""
-    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
-
-
 def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
                        sa_fp=None, sa_dtype=np.dtype("<u8"),
                        chunk_target: int = 48 << 20, max_chunks: int = 256,
@@ -257,7 +252,7 @@ def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
                     nph_b=state[1].shape[0], D=D, dict_total=dict_total,
                     nsuf=nsuf, n_levels=n_levels,
                     j2_stream=j2_stream, j2_runs=j2_runs, j2_s=j2.seconds,
-                    peak_j2=_peak(dev))
+                    peak_j2=peak_allocated(dev))
 
         with task_timer("streamed build: J3a dict sort, parse-BWT, "
                         "chunk table", "j3a") as j3a:
@@ -270,7 +265,7 @@ def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
             st = {k: st[k] for k in _CHUNK_KEYS}
             with span("j3a.table_read"):
                 table = host_read(table).tolist()
-        info.update(j3a_s=j3a.seconds, peak_j3a=_peak(dev))
+        info.update(j3a_s=j3a.seconds, peak_j3a=peak_allocated(dev))
         s_starts = table[: max_chunks + 1]
         bases = table[max_chunks + 1: 2 * (max_chunks + 1)]
         max_m, total = table[-2], table[-1]
@@ -308,7 +303,7 @@ def pfbwt_fused_stream(C: np.ndarray, w: int, p: int, bwt_fp=None,
                 checksum, nbad = host_read(
                     torch.stack((ck_sum, bad_sum))).tolist()
         info.update(chunks_s=j3e.seconds, n_chunks=n_chunks,
-                    peak_chunks=_peak(dev))
+                    peak_chunks=peak_allocated(dev))
         if nbad:
             die(f"streamed assembly invariant violation: {nbad} local gids "
                 "exceed the chunk-local table (chunk table sizing bug)")

@@ -24,6 +24,7 @@ import torch
 from .. import native
 from ..utils.device import resolve_device
 from ..utils.errors import die
+from ..utils.timer import host_read
 from .suffix import _doubling
 from .suffix_np import suffix_array_ints_np
 
@@ -87,11 +88,11 @@ def bwt_of_parse_device(parse_ranks: np.ndarray, last: np.ndarray,
         n,
     )
     return ParseBWT(
-        bwlast=bwlast.cpu().numpy(),
-        ilist=ilist.cpu().numpy(),
-        bwsai=(bwsai.cpu().numpy().view(np.uint64) if get_sai
+        bwlast=host_read(bwlast).numpy(),
+        ilist=host_read(ilist).numpy(),
+        bwsai=(host_read(bwsai).numpy().view(np.uint64) if get_sai
                else np.zeros(0, dtype=np.uint64)),
-        bwt_sym=sym.cpu().numpy(),
+        bwt_sym=host_read(sym).numpy(),
     )
 
 

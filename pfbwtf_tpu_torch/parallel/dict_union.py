@@ -43,6 +43,7 @@ from ..utils.device import resolve_device
 from ..utils.errors import die
 from ..utils.limits import check_phrase_count
 from ..utils.tables import codes_or_die, ntoa_codes
+from ..utils.timer import host_read
 from .dsort import _round_up, _sort_bucket
 from .sharded import (ParseMesh, all_gather_rows, exchange, gather_ragged,
                       shift_from)
@@ -95,7 +96,8 @@ def dedup_rank_device(T: np.ndarray, starts, ends, device="cuda",
     all-zero columns and all-ones rows leave every rank as it is.  The
     lexsort is one stable sort per column, the last column first.
     ``info``, if given, receives ncols, the row matrix's bytes and the
-    lexsort's seconds (timed between two device synchronisations)."""
+    lexsort's seconds (timed between two device synchronisations).  The
+    ranks come back through utils/timer.host_read (one counted sync)."""
     dev = resolve_device(device)
     starts = np.asarray(starts, dtype=np.int64)
     ends = np.asarray(ends, dtype=np.int64)
@@ -120,7 +122,7 @@ def dedup_rank_device(T: np.ndarray, starts, ends, device="cuda",
     if info is not None:
         info.update(dedup_ncols=ncols, dedup_rows_bytes=cols.numel() * 8,
                     dedup_lexsort_s=lexsort_s)
-    return _dict_from_ranks(T, starts, ends, ranks.cpu().numpy())
+    return _dict_from_ranks(T, starts, ends, host_read(ranks).numpy())
 
 
 # --------------------------------------------------------------------------

@@ -8,10 +8,24 @@ writes .dict/.occ/.parse/.n[/.docs] and .bwlast/.ilist[/.bwsai]
 heavy stage runs on ``device``; a ``backend`` of ``"numpy"`` (or the
 PFBWT_* variables, engine.py) moves the parse-BWT and the assembly to the
 host.
+
+``run_parser`` and ``run_pfbwt`` are entry points of a build
+(utils/timer.build): called alone each is one, called inside an open
+build (cli/pfbwt_f's staged run) each joins it.  Its spans, in order:
+``staged.read``, ``staged.stream``, ``staged.scan``, ``staged.dedup``
+(engine.py), ``staged.save_parse`` (.dict .occ .parse .n),
+``staged.parse_bwt``, ``staged.save_parse_bwt`` (.bwlast .ilist .bwsai),
+``staged.load`` (stage 3 reads the files back), ``staged.assemble`` (with
+the device assembly's ``fetch``) and ``staged.write`` (.bwt .sa .ssa
+.esa).  Counters: ``ckpt_bytes`` (checkpoint files written),
+``out_bytes`` (outputs written) beside the host reads' ``syncs`` and
+``d2h_bytes``.  ``info`` gets ``peak_parse`` and ``peak_assemble``, the
+device's peak allocation as stages 1-2 and stage 3 end (None on the
+CPU).
 """
 
+import os
 import sys
-import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -21,16 +35,25 @@ from . import engine
 from .constants import EXT
 from .io import formats
 from .ops.parse import ParseResult, ParserParams
+from .utils.device import peak_allocated
 from .utils.limits import check_phrase_count, check_text_width
-from .utils.timer import task_timer
+from .utils.timer import build, count, span, task_timer
 
 U32, U64 = formats.U32, formats.U64
 
 
+def _count_ckpt(prefix: str, exts):
+    """Add the sizes of the checkpoint files ``prefix.<ext>`` to the open
+    build's ``ckpt_bytes``."""
+    count("ckpt_bytes",
+          sum(os.path.getsize(prefix + "." + ext) for ext in exts))
+
+
 def save_parser(res: ParseResult, prefix: str, dtype=U64):
     """save_parser (pfbwt_io.hpp:234-249): .dict streamed in slabs from
-    the flat dictionary view, .occ, .parse, .docs, .n.  Guards the output
-    width before narrowing (pfparser.hpp:326-331, 393-405)."""
+    the flat dictionary view, .occ, .parse, .docs, .n, counted in
+    ``ckpt_bytes``.  Guards the output width before narrowing
+    (pfparser.hpp:326-331, 393-405)."""
     check_text_width(res.n, dtype)
     check_phrase_count(res.parse_ranks.shape[0], dtype)
     with open(prefix + "." + EXT.DICT, "wb") as f:
@@ -38,27 +61,40 @@ def save_parser(res: ParseResult, prefix: str, dtype=U64):
             f.write(slab.tobytes())
     formats.write_occ(prefix + "." + EXT.OCC, res.occs, dtype)
     formats.write_parse_ranks(prefix + "." + EXT.PARSE, res.parse_ranks)
+    exts = [EXT.DICT, EXT.OCC, EXT.PARSE, EXT.N]
     if res.params.store_docs:
         formats.write_docs(prefix + "." + EXT.DOCS, res.doc_names,
                            res.doc_starts)
+        exts.append(EXT.DOCS)
     formats.write_n(prefix + "." + EXT.N, res.n)
+    _count_ckpt(prefix, exts)
+
+
+def write_parse_bwt(pb, prefix: str, dtype=U64, sa: bool = True):
+    """The parse-BWT's files .bwlast, .ilist and (with ``sa``) .bwsai
+    (pfbwt_io.hpp:287-297), counted in ``ckpt_bytes``."""
+    formats.write_u8(prefix + "." + EXT.BWLST, pb.bwlast)
+    formats.write_uint(prefix + "." + EXT.ILIST, pb.ilist, dtype)
+    exts = [EXT.BWLST, EXT.ILIST]
+    if sa:
+        formats.write_uint(prefix + "." + EXT.BWSAI, pb.bwsai, dtype)
+        exts.append(EXT.BWSAI)
+    _count_ckpt(prefix, exts)
 
 
 def save_parse_bwt(res: ParseResult, prefix: str, dtype=U64, sa: bool = True,
                    device="cuda", info: dict = None,
                    backend: Optional[str] = None):
-    """Stage 2 and its files (pfbwt_io.hpp:287-297); ``info`` receives
-    parse_bwt_s and the seconds of the writes (write_s, added to)."""
+    """Stage 2 (span ``staged.parse_bwt``) and its files
+    (``staged.save_parse_bwt``); ``info`` receives parse_bwt_s and the
+    seconds of the writes (write_s, added to)."""
     info = {} if info is None else info
-    t0 = time.perf_counter()
-    pb = engine.parse_bwt(res, get_sai=sa, device=device, backend=backend)
-    t1 = time.perf_counter()
-    formats.write_u8(prefix + "." + EXT.BWLST, pb.bwlast)
-    formats.write_uint(prefix + "." + EXT.ILIST, pb.ilist, dtype)
-    if sa:
-        formats.write_uint(prefix + "." + EXT.BWSAI, pb.bwsai, dtype)
-    info["parse_bwt_s"] = t1 - t0
-    info["write_s"] = info.get("write_s", 0.0) + time.perf_counter() - t1
+    with span("staged.parse_bwt") as stage:
+        pb = engine.parse_bwt(res, get_sai=sa, device=device, backend=backend)
+    with span("staged.save_parse_bwt") as write:
+        write_parse_bwt(pb, prefix, dtype, sa)
+    info["parse_bwt_s"] = stage.seconds
+    info["write_s"] = info.get("write_s", 0.0) + write.seconds
     return pb
 
 
@@ -82,23 +118,27 @@ class PfbwtConfig:
 def run_parser(in_fname: str, output: str, params: ParserParams, dtype=U64,
                device="cuda", info: dict = None,
                backend: Optional[str] = None) -> int:
-    """Stages 1 and 2: parse, write the checkpoint files; returns n.
-    ``info`` receives engine.parse_fasta's keys, parse_bwt_s and write_s."""
+    """Stages 1 and 2: parse, write the checkpoint files; returns n.  A
+    build (module docstring); ``info`` receives engine.parse_fasta's keys,
+    parse_bwt_s, write_s and peak_parse."""
     info = {} if info is None else info
-    with task_timer("parsing input"):
-        res = engine.parse_fasta(in_fname, params, device, info)
-    with task_timer("finalizing parse, writing dict, occs, and ranks"):
-        t0 = time.perf_counter()
-        save_parser(res, output, dtype)
-        info["write_s"] = time.perf_counter() - t0
-    with task_timer("ranking and bwt-ing parse and processing last-chars"):
-        save_parse_bwt(res, output, dtype, sa=params.get_sai, device=device,
-                       info=info, backend=backend)
-    if params.trim_non_acgt:
-        # the reference writes the (always empty) non-ACGT run table when
-        # trimming is asked for (pfbwt-f.cpp:238-240; the trim path is
-        # disabled upstream, pfparser.hpp:338-359)
-        open(output + ".ntab", "wb").close()
+    with build(info):
+        with task_timer("parsing input"):
+            res = engine.parse_fasta(in_fname, params, device, info)
+        with task_timer("finalizing parse, writing dict, occs, and ranks",
+                        "staged.save_parse") as write:
+            save_parser(res, output, dtype)
+        info["write_s"] = write.seconds
+        with task_timer("ranking and bwt-ing parse and processing "
+                        "last-chars"):
+            save_parse_bwt(res, output, dtype, sa=params.get_sai,
+                           device=device, info=info, backend=backend)
+        if params.trim_non_acgt:
+            # the reference writes the (always empty) non-ACGT run table
+            # when trimming is asked for (pfbwt-f.cpp:238-240; the trim
+            # path is disabled upstream, pfparser.hpp:338-359)
+            open(output + ".ntab", "wb").close()
+        info["peak_parse"] = peak_allocated(device)
     return res.n
 
 
@@ -115,9 +155,9 @@ def run_parser_chunked(in_fname: str, output: str, params: ParserParams,
     info = {} if info is None else info
     res = parse_fasta_chunked(in_fname, params, chunk=chunk, device=device,
                               info=info)
-    t0 = time.perf_counter()
-    save_parser(res, output, dtype)
-    info["write_s"] = time.perf_counter() - t0
+    with span("staged.save_parse") as write:
+        save_parser(res, output, dtype)
+    info["write_s"] = write.seconds
     save_parse_bwt(res, output, dtype, sa=params.get_sai, device=device,
                    info=info, backend=backend)
     return res.n
@@ -129,42 +169,58 @@ def _out_handle(cfg: PfbwtConfig, ext: str):
     return open(cfg.prefix + "." + ext, "wb")
 
 
+def _write_out(cfg: PfbwtConfig, ext: str, data: np.ndarray):
+    """Output ``ext`` (to stdout with ``-c ext``), counted in
+    ``out_bytes``."""
+    fp = _out_handle(cfg, ext)
+    fp.write(data.tobytes())
+    if fp is not sys.stdout.buffer:
+        fp.close()
+    count("out_bytes", data.nbytes)
+
+
 def run_pfbwt(cfg: PfbwtConfig, n: Optional[int] = None, info: dict = None):
     """Stage 3: load the checkpoint files, assemble the final BWT on
     cfg.device (or on the host: cfg.backend, engine.assemble_bwt; or
     over cfg.mesh, parallel/pfbwt_mesh.mesh_assemble_bwt), write
-    .bwt[/.sa][/.ssa/.esa].  ``info`` receives
-    assembly_s and the seconds of the reads and writes (write_s, added
-    to), and mesh_assemble_bwt's keys; with cfg.mmap,
-    _run_pfbwt_stream's keys instead."""
+    .bwt[/.sa][/.ssa/.esa].  A build (module docstring); ``info`` receives
+    assembly_s (span ``staged.assemble``), the seconds of the reads and
+    writes (write_s, added to: spans ``staged.load`` and
+    ``staged.write``), peak_assemble, and mesh_assemble_bwt's keys; with
+    cfg.mmap, _run_pfbwt_stream's keys instead."""
     info = {} if info is None else info
+    with build(info):
+        return _run_pfbwt(cfg, n, info)
+
+
+def _run_pfbwt(cfg: PfbwtConfig, n: Optional[int], info: dict):
     prefix = cfg.prefix
-    t0 = time.perf_counter()
-    if cfg.mmap:
-        # -m mode: the inputs stay file-backed (file_wrappers.hpp MMap role)
-        def read(ext, dtype):
-            return np.memmap(prefix + "." + ext, dtype=dtype, mode="r")
-    else:
-        def read(ext, dtype):
-            return formats.read_uint(prefix + "." + ext, dtype)
-    dict_flat = read(EXT.DICT, np.uint8)
-    occs = read(EXT.OCC, cfg.dtype)
-    bwlast = read(EXT.BWLST, np.uint8)
-    ilist = read(EXT.ILIST, cfg.dtype)
-    any_sa = cfg.sa or cfg.rssa
-    bwsai = read(EXT.BWSAI, cfg.dtype) if any_sa else None
-    if n is None:
-        n = formats.read_n(prefix + "." + EXT.N)
+    with span("staged.load") as load:
+        if cfg.mmap:
+            # -m mode: the inputs stay file-backed (file_wrappers.hpp MMap
+            # role)
+            def read(ext, dtype):
+                return np.memmap(prefix + "." + ext, dtype=dtype, mode="r")
+        else:
+            def read(ext, dtype):
+                return formats.read_uint(prefix + "." + ext, dtype)
+        dict_flat = read(EXT.DICT, np.uint8)
+        occs = read(EXT.OCC, cfg.dtype)
+        bwlast = read(EXT.BWLST, np.uint8)
+        ilist = read(EXT.ILIST, cfg.dtype)
+        any_sa = cfg.sa or cfg.rssa
+        bwsai = read(EXT.BWSAI, cfg.dtype) if any_sa else None
+        if n is None:
+            n = formats.read_n(prefix + "." + EXT.N)
     check_text_width(n, cfg.dtype)
     if cfg.mmap:
         return _run_pfbwt_stream(cfg, dict_flat, occs, bwlast, ilist, bwsai,
                                  n, info)
-    t1 = time.perf_counter()
     with task_timer(
         "generating final BWT w/ full and/or run-length SA"
         if any_sa
-        else "generating final BWT w/o SA"
-    ):
+        else "generating final BWT w/o SA", "staged.assemble"
+    ) as stage:
         if cfg.mesh is not None:
             from .parallel.pfbwt_mesh import mesh_assemble_bwt
 
@@ -181,32 +237,29 @@ def run_pfbwt(cfg: PfbwtConfig, n: Optional[int] = None, info: dict = None):
                 want_sa=cfg.sa, want_rssa=cfg.rssa, sa_dtype=cfg.dtype,
                 device=cfg.device, backend=cfg.backend,
             )
-    t2 = time.perf_counter()
-    info["assembly_s"] = t2 - t1
+    info.update(assembly_s=stage.seconds,
+                peak_assemble=peak_allocated(cfg.device))
     if cfg.mesh is not None and cfg.mesh.rank != 0:
         return res
-    bwt_fp = _out_handle(cfg, EXT.BWT)
-    bwt_fp.write(res.bwt.tobytes())
-    if bwt_fp is not sys.stdout.buffer:
-        bwt_fp.close()
-    if cfg.sa:
-        sa_fp = _out_handle(cfg, EXT.SA)
-        sa_fp.write(res.sa.astype(cfg.dtype).tobytes())
-        if sa_fp is not sys.stdout.buffer:
-            sa_fp.close()
-    _finish(cfg, n, res.nruns, res.ssa, res.esa)
-    info["write_s"] = (info.get("write_s", 0.0) + (t1 - t0)
-                       + time.perf_counter() - t2)
+    with span("staged.write") as write:
+        _write_out(cfg, EXT.BWT, res.bwt)
+        if cfg.sa:
+            _write_out(cfg, EXT.SA, res.sa.astype(cfg.dtype))
+        _finish(cfg, n, res.nruns, res.ssa, res.esa)
+    info["write_s"] = (info.get("write_s", 0.0) + load.seconds
+                       + write.seconds)
     return res
 
 
 def _finish(cfg: PfbwtConfig, n: int, nruns: int, ssa, esa):
-    """The run-length samples (.ssa/.esa with -r) and the n/r lines."""
+    """The run-length samples (.ssa/.esa with -r, counted in
+    ``out_bytes``) and the n/r lines."""
     if cfg.rssa:
-        with open(cfg.prefix + "." + EXT.SSA, "wb") as f:
-            f.write(ssa.astype(cfg.dtype).tobytes())
-        with open(cfg.prefix + "." + EXT.ESA, "wb") as f:
-            f.write(esa.astype(cfg.dtype).tobytes())
+        for ext, pairs in ((EXT.SSA, ssa), (EXT.ESA, esa)):
+            pairs = pairs.astype(cfg.dtype)
+            with open(cfg.prefix + "." + ext, "wb") as f:
+                f.write(pairs.tobytes())
+            count("out_bytes", pairs.nbytes)
     print(f"n: {n}", file=sys.stderr)
     print(f"r: {nruns}", file=sys.stderr)
     print(f"n/r: {n / nruns:.3f}", file=sys.stderr)
@@ -216,27 +269,31 @@ def _run_pfbwt_stream(cfg: PfbwtConfig, dict_flat, occs, bwlast, ilist,
                       bwsai, n, info):
     """-m stage 3: the streamed bounded-memory assembly on cfg.device,
     straight into the output files, with the .gsa/.glcp workspace spill
-    (ops/bwt_mmap).  ``info`` receives assemble_bwt_stream's keys and
-    assembly_s, which here includes the writes."""
+    (ops/bwt_mmap).  ``info`` receives assemble_bwt_stream's keys,
+    peak_assemble and assembly_s (span ``staged.assemble``), which here
+    includes the writes."""
     from .ops.bwt_mmap import assemble_bwt_stream
 
-    t0 = time.perf_counter()
-    with task_timer("generating final BWT (mmap mode)"):
-        bwt_fp = _out_handle(cfg, EXT.BWT)
-        sa_fp = _out_handle(cfg, EXT.SA) if cfg.sa else None
-        try:
-            nruns, ssa, esa = assemble_bwt_stream(
-                dict_flat, cfg.w, np.asarray(occs).astype(np.int64),
-                bwlast, ilist, bwsai, n,
-                bwt_fp, sa_fp=sa_fp, want_rssa=cfg.rssa,
-                sa_dtype=cfg.dtype, workspace_prefix=cfg.prefix,
-                workspace_dtype=cfg.dtype, device=cfg.device, info=info,
-            )
-        finally:
-            if bwt_fp is not sys.stdout.buffer:
-                bwt_fp.close()
-            if sa_fp is not None and sa_fp is not sys.stdout.buffer:
-                sa_fp.close()
-    _finish(cfg, n, nruns, ssa, esa)
-    info["assembly_s"] = time.perf_counter() - t0
+    with span("staged.assemble") as stage:
+        with task_timer("generating final BWT (mmap mode)"):
+            bwt_fp = _out_handle(cfg, EXT.BWT)
+            sa_fp = _out_handle(cfg, EXT.SA) if cfg.sa else None
+            try:
+                nruns, ssa, esa = assemble_bwt_stream(
+                    dict_flat, cfg.w, np.asarray(occs).astype(np.int64),
+                    bwlast, ilist, bwsai, n,
+                    bwt_fp, sa_fp=sa_fp, want_rssa=cfg.rssa,
+                    sa_dtype=cfg.dtype, workspace_prefix=cfg.prefix,
+                    workspace_dtype=cfg.dtype, device=cfg.device, info=info,
+                )
+            finally:
+                if bwt_fp is not sys.stdout.buffer:
+                    bwt_fp.close()
+                if sa_fp is not None and sa_fp is not sys.stdout.buffer:
+                    sa_fp.close()
+        count("out_bytes",
+              (n + 1) * (1 + (np.dtype(cfg.dtype).itemsize if cfg.sa else 0)))
+        info["peak_assemble"] = peak_allocated(cfg.device)
+        _finish(cfg, n, nruns, ssa, esa)
+    info["assembly_s"] = stage.seconds
     return nruns

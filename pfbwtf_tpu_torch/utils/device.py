@@ -13,3 +13,14 @@ def resolve_device(device) -> torch.device:
             "available; pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+def peak_allocated(device):
+    """torch.cuda.max_memory_allocated of ``device`` on a card, else None:
+    the device's peak allocation so far, as a build's stage ends.  A
+    stage that ran on the host under a CUDA ``device`` with no card (the
+    numpy backends) reads None too."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return None
+    return torch.cuda.max_memory_allocated(dev)
