@@ -12,45 +12,70 @@ from typing import List, Tuple
 
 import numpy as np
 
+from ..utils.timer import count
 
-def _read_all(fname: str) -> bytes:
+
+_WS = b"\n\r \t"  # the bytes a sequence drops
+
+
+def _read_all(fname: str) -> bytearray:
+    """The file's bytes (decompressed where gzip) in writable memory: a
+    plain file is read straight into a buffer of its size."""
     if fname == "-":
-        data = sys.stdin.buffer.read()
+        data = bytearray(sys.stdin.buffer.read())
     else:
         with open(fname, "rb") as f:
-            data = f.read()
+            size = os.fstat(f.fileno()).st_size  # 0 for a pipe or device
+            data = bytearray(size)
+            got = f.readinto(data)
+            if got < size:  # the file shrank
+                del data[got:]
+            data += f.read()  # or grew, or is a stream
     if data[:2] == b"\x1f\x8b":  # gzip, incl. concatenated bgzip members
-        data = gzip.decompress(data)
+        data = bytearray(gzip.decompress(data))
     return data
 
 
+def _headers(data: bytearray):
+    """The offsets of the '>' bytes that start a line, in order."""
+    pos = data.find(b">")
+    while pos >= 0:
+        if pos == 0 or data[pos - 1] == 10:  # b"\n"
+            yield pos
+        pos = data.find(b">", pos + 1)
+
+
 def read_fasta_bytes(fname: str) -> List[Tuple[str, np.ndarray]]:
-    """Returns [(name, seq_bytes_u8)] per record."""
+    """Returns [(name, seq_bytes_u8)] per record: each a 1-D, C-contiguous,
+    writable uint8 array.  A record whose bytes hold no whitespace is a
+    view of the read buffer (counter ``fasta_views``), which it keeps
+    alive; records never share bytes.  Any other record is stripped of
+    whitespace in one pass into bytes of its own (``fasta_stripped``)."""
     data = _read_all(fname)
     if not data:
         return []
-    buf = np.frombuffer(data, dtype=np.uint8)
-    nl = ord("\n")
-    newline_pos = np.flatnonzero(buf == nl)
-    line_starts = np.concatenate(([0], newline_pos + 1))
-    line_starts = line_starts[line_starts < buf.size]
-    header_starts = line_starts[buf[line_starts] == ord(">")]
-    if header_starts.size == 0:
+    starts = list(_headers(data))
+    if not starts:
         raise ValueError(f"{fname}: not FASTA (no '>' header)")
-    line_ends = np.searchsorted(newline_pos, header_starts)
-    header_ends = np.where(
-        line_ends < newline_pos.size, newline_pos[line_ends], buf.size
-    )
-    ws = (buf == nl) | (buf == ord("\r")) | (buf == ord(" ")) | (buf == ord("\t"))
-    bounds = np.concatenate((header_starts, [buf.size]))
+    buf = np.frombuffer(data, dtype=np.uint8)
+    bounds = starts[1:] + [len(data)]
     records = []
-    for i in range(header_starts.size):
-        hs, he = header_starts[i], header_ends[i]
+    for hs, end in zip(starts, bounds):
+        he = data.find(b"\n", hs, end)
+        he = end if he < 0 else he
         header = data[hs + 1: he].decode("ascii", "replace")
         name = header.split()[0] if header.split() else ""
-        seq_lo, seq_hi = he + 1 if he < buf.size else buf.size, bounds[i + 1]
-        seq = buf[seq_lo:seq_hi][~ws[seq_lo:seq_hi]]
-        records.append((name, np.ascontiguousarray(seq)))
+        lo, hi = min(he + 1, end), end
+        while hi > lo and data[hi - 1] in _WS:
+            hi -= 1
+        if all(data.find(c, lo, hi) < 0 for c in _WS):  # memchr each
+            seq, path = buf[lo:hi], "fasta_views"
+        else:
+            seq = np.frombuffer(data[lo:hi].translate(None, _WS),
+                                dtype=np.uint8)
+            path = "fasta_stripped"
+        count(path)
+        records.append((name, seq))
     return records
 
 
