@@ -7,11 +7,18 @@ into one parse and writes its .dict/.occ/.parse/.n[/.docs], and with
 ``--parse-bwt`` its .bwlast/.ilist[/.bwsai].  The rescan (kernel K1), the
 dedup and the parse-BWT run on the card (``device``); ``-t`` is accepted
 and changes nothing, as in pfbwtf_tpu.
+
+A run is one build (utils/timer.build): the merge's spans ``merge.rebuild``,
+``merge.scan`` and ``merge.dedup`` (parallel/merge.py), ``merge.save_parse``
+(.dict .occ .parse .n [.docs]), then with ``--parse-bwt`` stage 2's
+``staged.parse_bwt`` and ``staged.save_parse_bwt`` (pipeline.save_parse_bwt,
+the staged build's own code); counters ``merge_prefixes``,
+``rebuilt_bytes``, ``ckpt_bytes`` (files written) and the host reads'
+``syncs`` and ``d2h_bytes``.
 """
 
 import argparse
 import sys
-import time
 
 from ..io import formats
 from ..ops.parse import ParserParams
@@ -19,11 +26,13 @@ from ..parallel.merge import merge_parse_prefixes
 from ..pipeline import save_parse_bwt, save_parser
 from ..utils.errors import PfbwtError
 from ..utils.malloc_tuning import tune_malloc
+from ..utils.timer import build, span
 
 
 def main(argv=None, device="cuda", info: dict = None):
-    """``info`` receives merge_parse_prefixes's keys, parse_bwt_s and
-    write_s (every file written)."""
+    """``info`` receives merge_parse_prefixes's keys (peak_merge among
+    them), parse_bwt_s and write_s (every file written), with the build's
+    spans, counts and build_id."""
     ap = argparse.ArgumentParser(prog="merge_pfp")
     ap.add_argument("prefixes", nargs="+")
     ap.add_argument("-o", "--output", default="out")
@@ -42,14 +51,15 @@ def main(argv=None, device="cuda", info: dict = None):
     )
     info = {} if info is None else info
     try:
-        res = merge_parse_prefixes(args.prefixes, params, device=device,
-                                   info=info)
-        t0 = time.perf_counter()
-        save_parser(res, args.output, dtype)
-        info["write_s"] = time.perf_counter() - t0
-        if args.parse_bwt:
-            save_parse_bwt(res, args.output, dtype, sa=args.sai,
-                           device=device, info=info)
+        with build(info):
+            res = merge_parse_prefixes(args.prefixes, params, device=device,
+                                       info=info)
+            with span("merge.save_parse") as write:
+                save_parser(res, args.output, dtype)
+            info["write_s"] = write.seconds
+            if args.parse_bwt:
+                save_parse_bwt(res, args.output, dtype, sa=args.sai,
+                               device=device, info=info)
     except PfbwtError as e:
         print(str(e), file=sys.stderr)
         return 1

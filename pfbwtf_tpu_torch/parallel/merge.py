@@ -16,10 +16,16 @@ So merging = rebuild each shard's text on the host, concatenate, and parse
 the whole again: the cut scan (kernel K1 on the card) and the dictionary
 dedup run on ``device`` (engine.parse_stream, ops/parse.finalize_parse).
 The n-scale index arrays of the text rebuild stay on the host.
+
+Inside an open build (utils/timer.build: merge_pfp's run, the pod parse)
+the merge's stages are the spans ``merge.rebuild`` (the texts rebuilt or
+read, and joined), ``merge.scan`` (engine.parse_stream) and
+``merge.dedup`` (finalize_parse), with the counters ``merge_prefixes``
+(prefixes read) and ``rebuilt_bytes`` (characters rebuilt from .dict +
+.parse).
 """
 
 import os
-import time
 from typing import List
 
 import numpy as np
@@ -28,7 +34,9 @@ from ..constants import Dollar, EndOfWord
 from ..io import formats
 from ..io.fasta import read_fasta_bytes
 from ..ops.parse import ParseResult, ParserParams, build_stream, finalize_parse
+from ..utils.device import peak_allocated
 from ..utils.errors import die
+from ..utils.timer import count, span
 
 
 def reconstruct_text(prefix: str, w: int):
@@ -73,7 +81,9 @@ def load_or_generate_text(prefix: str, params: ParserParams):
     use the saved parse checkpoint when present, else parse the FASTA at
     ``prefix`` directly."""
     if formats.parse_files_exist(prefix):
-        return reconstruct_text(prefix, params.w)
+        C, names, starts = reconstruct_text(prefix, params.w)
+        count("rebuilt_bytes", C.shape[0])
+        return C, names, starts
     if not os.path.exists(prefix):
         die(f"ERROR: {prefix} not found, cannot add it to parse!")
     records = read_fasta_bytes(prefix)
@@ -87,33 +97,37 @@ def merge_parse_prefixes(prefixes: List[str], params: ParserParams,
                          device="cuda", info: dict = None) -> ParseResult:
     """merge_pfp core: fold all prefixes into one finalized parse, the
     rescan and the dedup on ``device`` (the reference's operator+= fold is
-    host-serial, merge_pfp.cpp:97-152).  ``info`` receives rebuild_s (the
-    texts rebuilt or read), scan_s, dedup_s and finalize_parse's keys."""
+    host-serial, merge_pfp.cpp:97-152).  ``info`` receives rebuild_s,
+    scan_s and dedup_s (the seconds of the spans ``merge.rebuild``,
+    ``merge.scan`` and ``merge.dedup``), finalize_parse's keys and
+    peak_merge, the device's peak allocation as the dedup ends (None on
+    the CPU)."""
     from .. import engine
 
     info = {} if info is None else info
-    t0 = time.perf_counter()
-    chunks = []
-    doc_names: List[str] = []
-    doc_starts: List[int] = []
-    off = 0
-    for prefix in prefixes:
-        C, names, starts = load_or_generate_text(prefix, params)
-        chunks.append(C)
-        doc_names.extend(names)
-        doc_starts.extend(int(s) + off for s in starts)
-        off += C.shape[0]
-    C = np.concatenate(chunks) if chunks else np.zeros(0, np.uint8)
-    del chunks
-    t1 = time.perf_counter()
-    starts_arr, ends_arr = engine.parse_stream(C, params, device)
-    t2 = time.perf_counter()
-    res = finalize_parse(
-        C, starts_arr, ends_arr, params,
-        doc_names=doc_names if params.store_docs else [],
-        doc_starts=doc_starts if params.store_docs else [],
-        nseqs=len(doc_names), device=device, info=info,
-    )
-    info.update(rebuild_s=t1 - t0, scan_s=t2 - t1,
-                dedup_s=time.perf_counter() - t2)
+    with span("merge.rebuild") as rebuild:
+        chunks = []
+        doc_names: List[str] = []
+        doc_starts: List[int] = []
+        off = 0
+        for prefix in prefixes:
+            C, names, starts = load_or_generate_text(prefix, params)
+            count("merge_prefixes")
+            chunks.append(C)
+            doc_names.extend(names)
+            doc_starts.extend(int(s) + off for s in starts)
+            off += C.shape[0]
+        C = np.concatenate(chunks) if chunks else np.zeros(0, np.uint8)
+        del chunks
+    with span("merge.scan") as scan:
+        starts_arr, ends_arr = engine.parse_stream(C, params, device)
+    with span("merge.dedup") as dedup:
+        res = finalize_parse(
+            C, starts_arr, ends_arr, params,
+            doc_names=doc_names if params.store_docs else [],
+            doc_starts=doc_starts if params.store_docs else [],
+            nseqs=len(doc_names), device=device, info=info,
+        )
+    info.update(rebuild_s=rebuild.seconds, scan_s=scan.seconds,
+                dedup_s=dedup.seconds, peak_merge=peak_allocated(device))
     return res
